@@ -1,0 +1,231 @@
+"""Autoregressive synthesis with per-layer KV caches; counterpart of
+``few_shot_transformer_tts_tpu/infer/synthesize.py``.
+
+Semantics as in the JAX package (reference synthesize.py:17-72): finished
+rows feed zero prenet inputs, ``finished`` latches on ``stop_logit > 0``,
+lengths freeze at the stop frame, generation stops at the frame cap or when
+every row has finished, the postnet runs once at the end, and RTF is logged
+as ``wall_time * 80 / frames``.
+
+Two dropout modes: ``deterministic=True`` (dropout off), and the reference's
+decoder-dropout-on sampling (``m.eval(); m.decoder.train()``, reference
+eval.py:116-117) with the masks drawn from a ``torch.Generator``.
+
+The frame loop is a Python loop over eager PyTorch ops.  It asks the device
+whether every row has finished only every ``_STOP_CHECK_INTERVAL`` frames,
+so the host does not wait on the device each frame; frames run after the
+last row finished change no returned value (rows are independent, lengths
+are frozen, and the outputs are cut at the true step count).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import threading
+import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import Config
+from ..models.common import length_mask, padding_bias
+from ..models.tacotron import ByteToMel
+
+_STOP_CHECK_INTERVAL = 16
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def prepare_decode_inputs(batch: Dict[str, Any], hp: Config):
+    """Pad a synthesis batch onto the shape lattice (T_in and B rounded up).
+    Returns numpy (inputs [Bp, Tp] int32, input_lengths [Bp], spk_ids [Bp],
+    language_vecs [Bp, L])."""
+    inputs = np.asarray(batch["inputs"])
+    b, t_in = inputs.shape
+    t_pad = _round_up(max(t_in, 1), hp.input_length_multiple)
+    b_pad = _round_up(b, hp.batch_size_multiple)
+    inputs_p = np.zeros((b_pad, t_pad), np.int32)
+    inputs_p[:b, :t_in] = inputs
+    input_lengths = np.zeros((b_pad,), np.int32)
+    input_lengths[:b] = np.asarray(batch["input_lengths"])
+    # padded rows get length 1 to keep softmax well-defined; they stop on cap
+    input_lengths[b:] = 1
+    spk = np.zeros((b_pad,), np.int32)
+    if batch.get("input_spk_ids") is not None:
+        spk[:b] = np.asarray(batch["input_spk_ids"], np.int32)
+    lvec = np.zeros((b_pad, hp.max_num_language), np.float32)
+    if batch.get("input_language_vecs") is not None:
+        lvec[:b] = np.asarray(batch["input_language_vecs"], np.float32)
+    return inputs_p, input_lengths, spk, lvec
+
+
+@contextlib.contextmanager
+def matmul_weights_in(model: ByteToMel, dtype: torch.dtype):
+    """Within the block, Linear/Conv weights and embedding tables are held in
+    ``dtype``: cast once ahead of the frame loop instead of at every use (as
+    the JAX package pre-casts kernels and embeddings to bf16).  Norm
+    parameters, biases and ``pe_scale`` stay fp32.  The fp32 parameters are
+    restored on exit."""
+    saved = []
+    for mod in model.modules():
+        w = getattr(mod, "weight", None)
+        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Embedding)) and \
+                w.dtype != dtype:
+            saved.append((mod, w))
+            mod.weight = nn.Parameter(w.detach().to(dtype),
+                                      requires_grad=False)
+    try:
+        yield model
+    finally:
+        for mod, w in saved:
+            mod.weight = w
+
+
+@torch.no_grad()
+def _decode_loop(model: ByteToMel, inputs, input_lengths, input_spk_ids,
+                 input_language_vecs, max_frames: int, deterministic: bool,
+                 collect_alignments: bool,
+                 generator: Optional[torch.Generator]):
+    hp = model.hp
+    b, t_in = inputs.shape
+    _, memory_kv = model.encode(inputs, input_lengths, input_spk_ids,
+                                input_language_vecs)
+    memory_bias = padding_bias(length_mask(input_lengths, t_in))
+    cache = model.init_decode_cache(b, max_frames)
+    dev = inputs.device
+
+    mels = torch.zeros(b, max_frames, hp.num_mels, device=dev)
+    aligns = []
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    target_lengths = torch.ones(b, dtype=torch.int32, device=dev)
+    prev_mel = torch.zeros(b, hp.num_mels, device=dev)
+    steps_run = 0
+    for step in range(max_frames):
+        if step % _STOP_CHECK_INTERVAL == 0 and step and bool(finished.all()):
+            break
+        mel, stop, align = model.decode_step(
+            prev_mel, step, cache, memory_kv, memory_bias,
+            decoder_dropout=not deterministic, generator=generator,
+            finished=finished)
+        mels[:, step] = mel
+        if collect_alignments:
+            aligns.append(align)
+        finished = finished | (stop > 0)
+        target_lengths = torch.where(finished, target_lengths,
+                                     target_lengths + 1)
+        prev_mel = mel
+        steps_run = step + 1
+
+    # the JAX loop stops after the step at which the last row finished
+    n_steps = min(int(target_lengths.max()), steps_run)
+    residual = model.postnet_residual(mels, target_lengths)
+    align_t = torch.stack(aligns[:n_steps], dim=3) if collect_alignments \
+        else None                                   # [L, B, H, T_dec, T_enc]
+    return mels, mels + residual, target_lengths, align_t, n_steps
+
+
+def synthesize_batch(model: ByteToMel, batch: Dict[str, Any], hp: Config,
+                     deterministic: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     collect_alignments: bool = True,
+                     max_frames: Optional[int] = None) -> Dict[str, Any]:
+    """Greedy AR synthesis of a packed batch (reference synthesize.py:17-72)
+    on the model's device.
+
+    batch needs inputs [B, Tin] and input_lengths [B]; optional
+    input_spk_ids, input_language_vecs, names.  Returns the reference's
+    result dict (numpy): names, mel_pre, mel_aft, alignments (``encdec``: a
+    list per decoder layer of [B, H, T_enc, T_dec]), input_lengths,
+    generated_lengths.  With ``deterministic=False`` decoder dropout is on and
+    its masks come from ``generator`` (a fresh randomly seeded one if None).
+    """
+    tic = time.time()
+    inputs = np.asarray(batch["inputs"])
+    b, t_in = inputs.shape
+    inputs_p, input_lengths, spk, lvec = prepare_decode_inputs(batch, hp)
+    dev = model.device
+    if not deterministic and generator is None:
+        generator = torch.Generator(dev)
+        generator.seed()
+    cap = int(max_frames or hp.max_generation_frames)
+
+    as_t = lambda a: torch.from_numpy(a).to(dev)
+    with matmul_weights_in(model, model.dtype):
+        mels, mel_aft, target_lengths, aligns, n_steps = _decode_loop(
+            model, as_t(inputs_p), as_t(input_lengths), as_t(spk), as_t(lvec),
+            cap, deterministic, collect_alignments, generator)
+
+    mels = mels[:b, :n_steps].cpu().numpy()
+    mel_aft = mel_aft[:b, :n_steps].cpu().numpy()
+    target_lengths = target_lengths[:b].cpu().numpy()
+    toc = time.time()
+    total_length = int(target_lengths.sum())
+    logging.info(
+        "Time: %.4f, Samples: %d, Length: %d, Max length: %d, "
+        "Real-time Factor: %.4f",
+        toc - tic, b, total_length, int(target_lengths.max()),
+        (toc - tic) / max(total_length, 1) * 80)
+
+    alignments = {"self": None, "encdec": None}
+    if collect_alignments:
+        a = aligns[:, :b, :, :, :t_in].float().cpu().numpy()
+        # reference layout: list per layer of [B, H, T_enc(mem), T_dec(query)]
+        alignments["encdec"] = [a[i].transpose(0, 1, 3, 2)
+                                for i in range(a.shape[0])]
+
+    return {"names": batch.get("names", [str(i) for i in range(b)]),
+            "mel_pre": mels, "mel_aft": mel_aft,
+            "alignments": alignments,
+            "input_lengths": list(np.asarray(batch["input_lengths"])),
+            "generated_lengths": list(target_lengths)}
+
+
+def save_eval_results(names, mel_pre, mel_aft, alignments, input_lengths,
+                      generated_lengths, output_dir, hp: Config,
+                      save_trimmed_wave: bool = False):
+    """Save per-sample mel ``.npy``, Griffin-Lim ``.wav`` (CPU, numpy),
+    optionally ``_trim.wav``, and plots (reference synthesize.py:75-106);
+    4-thread pool as in the reference."""
+    from ..ops import dsp
+    from ..utils import infolog
+
+    def save_i(i):
+        try:
+            name = names[i]
+            mel = mel_aft[i][:generated_lengths[i]]
+            np.save(os.path.join(output_dir, "%s.npy" % name), mel)
+            wav = dsp.mel2wav(mel, hp)
+            if len(wav) == 0:
+                wav = np.zeros(hp.hop_length, np.float32)
+            dsp.save_wav(wav, os.path.join(output_dir, "%s.wav" % name), hp.sr)
+            if save_trimmed_wave:
+                dsp.save_wav(dsp.trim_silence_intervals(wav, hp),
+                             os.path.join(output_dir, "%s_trim.wav" % name),
+                             hp.sr)
+            infolog.plot_mel(os.path.join(output_dir, "%s_mel.png" % name), mel)
+            if alignments.get("encdec") is not None:
+                aligns = [a[i].transpose([0, 2, 1])
+                          for a in alignments["encdec"]]
+                infolog.plot_attn(
+                    aligns, os.path.join(output_dir, "%s_align.png" % name),
+                    enc_length=input_lengths[i],
+                    dec_length=generated_lengths[i])
+        except Exception:
+            logging.error("Fail to produce eval output: %s", names[i])
+            logging.error(traceback.format_exc())
+
+    tic = time.time()
+    with ThreadPoolExecutor(max_workers=4) as ex:
+        futures = [ex.submit(save_i, i) for i in range(len(names))]
+        [f.result() for f in futures]
+    logging.info("[%s] Finished saving evals in %.2f secs: %s",
+                 threading.current_thread().name, time.time() - tic,
+                 str(names))

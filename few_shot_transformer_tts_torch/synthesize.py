@@ -1,0 +1,80 @@
+"""Synthesis CLI of the port: reference-format checkpoint + script -> wavs
+and mels.
+
+    python -m few_shot_transformer_tts_torch.synthesize \
+        --checkpoint model.ckpt-<step> --script script.txt \
+        --data-dir DIR_WITH_lang_id.json_AND_spk_id.json \
+        --output-dir OUT [--hparams k=v,...] [--deterministic] [--device cuda]
+
+Script lines are ``SPEAKERNAME_FILEID|DUMMY_LENGTH|TEXT|LANG``.  Flags as in
+the JAX package's root ``synthesize.py`` plus ``--device`` (default cuda; a
+missing card raises rather than falling back).  The checkpoint is a
+``torch.save({model, optim, sched, step})`` file; the JAX package's msgpack
+checkpoints are not read.  Fp32 matmuls and convolutions run without TF32.
+"""
+
+import argparse
+import json
+import logging
+import os
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--checkpoint', required=True,
+                        help='model.ckpt-<step> file (reference torch format)')
+    parser.add_argument('--script', required=True,
+                        help='metadata file: name|dummy_len|text|lang per line')
+    parser.add_argument('--data-dir', required=True,
+                        help='directory with lang_id.json / spk_id.json')
+    parser.add_argument('--output-dir', required=True)
+    parser.add_argument('--hparams', default='')
+    parser.add_argument('--deterministic', action='store_true',
+                        help='disable decoder dropout (reference keeps it on)')
+    parser.add_argument('--device', default='cuda',
+                        help='torch device (default cuda; "cpu" to run there)')
+    args = parser.parse_args(argv)
+
+    from few_shot_transformer_tts_torch.config import default_config
+    from few_shot_transformer_tts_torch.data import FeederEval
+    from few_shot_transformer_tts_torch.infer import (synthesize_batch,
+                                                      save_eval_results)
+    from few_shot_transformer_tts_torch.models import ByteToMel
+    from few_shot_transformer_tts_torch.train.converter import \
+        load_reference_checkpoint
+    from few_shot_transformer_tts_torch.utils import infolog
+
+    infolog.set_logger()
+    hp = default_config().parse(args.hparams)
+    with open(os.path.join(args.data_dir, 'lang_id.json')) as f:
+        lang_to_id = json.load(f)
+    with open(os.path.join(args.data_dir, 'spk_id.json')) as f:
+        spk_to_id = json.load(f)
+
+    if not _is_torch_checkpoint(args.checkpoint):
+        raise ValueError('%s is not a torch.save checkpoint; the port reads '
+                         'reference-format checkpoints only' % args.checkpoint)
+    feeder = FeederEval(None, args.script, hp, spk_to_id=spk_to_id,
+                        lang_to_id=lang_to_id, shuffle=False, keep_order=True)
+    model = ByteToMel(hp, device=args.device)
+    step = load_reference_checkpoint(args.checkpoint, model)
+    model.eval()
+    logging.info('Loaded reference torch checkpoint at step %s on %s', step,
+                 model.device)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    for batch in feeder.fetch_data():
+        results = synthesize_batch(model, batch, hp,
+                                   deterministic=args.deterministic)
+        save_eval_results(**results, output_dir=args.output_dir, hp=hp,
+                          save_trimmed_wave=True)
+
+
+def _is_torch_checkpoint(path):
+    with open(path, 'rb') as f:
+        magic = f.read(2)
+    return magic in (b'PK', b'\x80\x02')  # torch zip / legacy pickle
+
+
+if __name__ == '__main__':
+    main()
