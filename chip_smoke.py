@@ -2,23 +2,31 @@
 """GPU smoke run of the PyTorch port (few_shot_transformer_tts_torch).
 
     python3 chip_smoke.py [--seed 0] [--out-dir build/chip_smoke]
+                          [--phases all]
 
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX.  Phases, each printed as one JSON line on stdout (any failure is an
 uncaught exception and a non-zero exit):
 
   1. device: the card's name and power limit (nvidia-smi).
-  2. build: nvcc builds csrc/mha_fwd.cu for sm_90a; seconds and the
-     ptxas resource summary.
-  3. kernel_check: the CUDA attention kernel against its plain PyTorch
-     version on the card, bf16, at the three flagship call shapes (encoder
-     self-attention, decoder causal, cross-attention) and edge shapes
-     (Tk = 2048, Tq = 600, Tk not a multiple of the 32-key tile), plus one
-     fp32 case.  Max abs error of o and lse against the stated tolerances;
-     kernel, plain and scaled_dot_product_attention times (CUDA events,
-     warm L2 as on the main path, where the projection has just written
-     q/k/v) beside the byte/FLOP bound.
-  4. main_path: the flagship default_config() (6+6 layers, 512/768, 8 heads,
+  2. build: nvcc builds every csrc/*.cu for sm_90a, one process per source,
+     all at once; seconds and each source's ptxas resource summary.
+  3. kernel_check: the CUDA attention forward against its plain PyTorch
+     version on the card, bf16, at the three flagship synthesis call shapes
+     (encoder self-attention, decoder causal, cross-attention, B=8) and edge
+     shapes (Tk = 2048, Tq = 600, Tk not a multiple of the 32-key tile),
+     plus one fp32 case.  Max abs error of o and lse against the stated
+     tolerances; kernel, plain and scaled_dot_product_attention times (CUDA
+     events, warm L2 as on the main path, where the projection has just
+     written q/k/v) beside the byte/FLOP bound.
+  4. train_kernel_check: the training kernels against their plain versions
+     at the three flagship train shapes (B=16, T_in=192, T_out=448), bf16,
+     plus an fp32 case and edge cases (causal Tq=600, Tk=77): mha_forward at
+     dropout 0.1 (same seed, so the same mask), mha_backward at rate 0 and
+     0.1 (dq, dk, dv), layer_norm_backward at 3072x512 and 7168x768.  Each
+     row: error against tolerance, kernel / plain / library ms, bound ms and
+     what binds it, launches per train step.
+  5. main_path: the flagship default_config() (6+6 layers, 512/768, 8 heads,
      80 mels) with weights from --seed through numpy, stop bias -1e4 so every
      row decodes to the cap; synthesize_batch at B=8, T_in=192, 512 frames,
      deterministic.  The kernel must launch exactly 6 times (one per encoder
@@ -28,15 +36,28 @@ uncaught exception and a non-zero exit):
      cross-attention) must match the plain path too.  Then the same
      call once with decoder dropout on, and a torch.profiler window of 64
      frames (device busy time against wall time, launches per frame).
-  5. cli: a reference-format checkpoint of the random weights, a 2-line
+  6. cli: a reference-format checkpoint of the random weights, a 2-line
      script and the id maps through ``python -m
      few_shot_transformer_tts_torch.synthesize`` (in-process, 64 frames);
      the .npy and .wav files must exist.
+  7. train: the flagship config, bf16, weights from --seed, one synthetic
+     batch at B=16, T_in=192, T_out=448.  One step at dropout 0 through the
+     kernels against the same step through the plain attention and
+     LayerNorm paths (loss and every gradient leaf, bf16 and fp32); then 10
+     Adam steps at the default dropout rates with 18 mha_forward, 18
+     mha_backward and 32 layer_norm_backward calls in every step, finite
+     and falling losses; sec/step, audio s/s, MFU, peak memory, and a
+     torch.profiler window of one step.
+  8. train_cli: ``python -m few_shot_transformer_tts_torch.train`` in-process
+     on a tiny synthetic corpus the script writes (small widths, head dims
+     64/96): 3 steps with a checkpoint, then a resume for 1 more step.
 
 Then a {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
+``--phases`` (comma-separated) runs a subset, for debugging.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -52,10 +73,16 @@ from few_shot_transformer_tts_torch.infer import synthesize_batch
 from few_shot_transformer_tts_torch.infer.synthesize import (
     matmul_weights_in, prepare_decode_inputs)
 from few_shot_transformer_tts_torch.models import ByteToMel
-from few_shot_transformer_tts_torch.models.tacotron import init_weights_
+from few_shot_transformer_tts_torch.models.tacotron import (compute_loss,
+                                                            init_weights_)
 from few_shot_transformer_tts_torch.ops import cuda_build
-from few_shot_transformer_tts_torch.ops.mha import (mha_forward,
-                                                    mha_forward_plain)
+from few_shot_transformer_tts_torch.ops.layernorm import (
+    layer_norm_backward, layer_norm_backward_plain)
+from few_shot_transformer_tts_torch.ops.mha import (
+    dropout_keep_mask, mha_backward, mha_backward_plain, mha_forward,
+    mha_forward_plain)
+from few_shot_transformer_tts_torch.train.loop import (
+    device_batch, make_optimizer, step_generator, train_step)
 from few_shot_transformer_tts_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -74,6 +101,31 @@ TOL_ENCODER = 0.125
 TOL_FRAMES = 0.25
 # teacher-forced mel_bef, kernel vs plain: 6 encoder and 6 decoder layers
 TOL_TEACHER = 0.25
+TRAIN_RATE = 0.1              # hp.transformer_dropout_rate
+# Training kernels against their plain versions, as max abs error over the
+# largest magnitude of the plain result.  bf16: both round the outputs to
+# bf16 (1 ulp = 2^-8 of the value) and round g, do/keep and ds*scale at the
+# same points, but a score that lands on either side of a bf16 rounding
+# boundary (the summation orders differ) moves one term by an ulp; 2e-2 is
+# about 5 ulps of the largest gradient.  fp32: summation order only.
+TOL_TRAIN = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# LayerNorm backward: dx as above; dgamma/dbeta are fp32 column sums over
+# thousands of rows, in another order than the plain version's.
+TOL_LN = {torch.bfloat16: {"dx": 2e-2, "dgamma": 1e-3, "dbeta": 1e-3},
+          torch.float32: {"dx": 1e-4, "dgamma": 1e-4, "dbeta": 1e-4}}
+# One flagship train step at dropout 0, kernels vs plain attention and
+# LayerNorm paths on the card: the loss (relative) and every gradient leaf
+# (|g_kernel - g_plain| / |g_plain| in L2 over the leaf).  bf16: the two
+# attention paths round p at different points (unnormalized in the kernel,
+# normalized in the plain path) through 12 layers forward and backward;
+# fp32: summation order only.
+TOL_STEP = {torch.bfloat16: {"loss": 1e-2, "grad": 5e-2},
+            torch.float32: {"loss": 1e-5, "grad": 1e-3}}
+
+
+# about 0.1 s at the H100's clocks: longer than the host takes to queue any
+# timed loop below
+SLEEP_CYCLES = 200_000_000
 
 
 def emit(obj):
@@ -81,11 +133,15 @@ def emit(obj):
 
 
 def cuda_ms(fn, iters):
-    """Mean device time of fn over iters launches, after a warm-up."""
+    """Mean device time of fn over iters launches, after a warm-up.  A
+    sleep kernel holds the card while the host queues every launch, so the
+    events time the device work and not the host's launch rate (a kernel of
+    tens of microseconds is otherwise timed at its wrapper's host cost)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -198,7 +254,218 @@ def kernel_phase(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def abs_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return abs_err(got, want) / max(want.float().abs().max().item(), 1e-30)
+
+
+def mha_backward_bound(b, tq, tk, c, heads, causal, use_bias, dtype):
+    """Least time for the backward: q, k, v, o, do read and dq, dk, dv
+    written once (plus lse and bias); five products (s, do.v^T, dv, dq, dk)
+    over the pairs this mask needs."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = (4 * b * tq * c + 4 * b * tk * c) * elt + b * tq * heads * 4 + \
+        (b * tk * 4 if use_bias else 0)
+    pairs = b * tq * (tq + 1) // 2 if causal else b * tq * tk
+    flops = 10.0 * pairs * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                   else "operations"), nbytes, flops
+
+
+def layernorm_bound(n, c, dtype):
+    """x, dy read and dx written once, gamma read and dgamma/dbeta written
+    once; about 16 fp32 operations per element outside the tensor cores."""
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = 3 * n * c * elt + 3 * c * 4
+    flops = 16.0 * n * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS_PER_S[torch.float32] * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                   else "operations"), nbytes, flops
+
+
+def sdpa_leaves(q, k, v, bias, heads, dtype):
+    """q/k/v as [B,H,T,D] leaves and the additive mask for SDPA."""
+    b, tq, c = q.shape
+    tk, d = k.shape[1], c // heads
+    leaf = lambda t, n: t.detach().view(b, n, heads, d).transpose(
+        1, 2).requires_grad_()
+    mask = bias[:, None, None, :].to(dtype) if bias is not None else None
+    return leaf(q, tq), leaf(k, tk), leaf(v, tk), mask
+
+
+def check_train_attention(name, rng, b, tq, tk, c, heads, causal, lengths,
+                          launches_per_step, cross=False,
+                          dtype=torch.bfloat16, iters=20):
+    """mha_forward at dropout 0.1 and mha_backward at rates 0 and 0.1
+    against the plain versions with the same seed (so the same mask)."""
+    q, k, v, bias = attention_inputs(rng, b, tq, tk, c, cross, lengths,
+                                     dtype)
+    use_bias = bias is not None
+    scale = (c // heads) ** -0.5
+    seed = torch.tensor([int(rng.randint(0, 2 ** 31)) << 20],
+                        dtype=torch.int64, device="cuda")
+    args = (q, k, v, bias, heads, causal, scale, use_bias)
+    tol = TOL_TRAIN[dtype]
+    shape = {"case": name, "dtype": str(dtype), "B": b, "Tq": tq, "Tk": tk,
+             "C": c, "H": heads, "causal": causal, "bias": use_bias,
+             "launches_per_train_step": launches_per_step}
+    qh, kh, vh, mask = sdpa_leaves(q, k, v, bias, heads, dtype)
+    rows = {}
+
+    o, lse = mha_forward(*args, rate=TRAIN_RATE, seed=seed)
+    o_ref, lse_ref = mha_forward_plain(*args, TRAIN_RATE, seed)
+    torch.cuda.synchronize()
+    err_o = rel_err(o, o_ref)
+    err_lse = (lse - lse_ref).abs().max().item()
+    bound_ms, bound_by, nbytes, flops = attention_bound(
+        b, tq, tk, c, heads, causal, use_bias, dtype)
+    row = dict(shape, phase="train_kernel_check", kernel="mha_forward",
+               rate=TRAIN_RATE, rel_err_o=err_o,
+               max_abs_err_o=abs_err(o, o_ref), max_abs_err_lse=err_lse,
+               tol_o=tol, tol_lse=TOL_BF16["lse"],
+               kept_share=dropout_keep_mask(seed, b, heads, tq, tk,
+                                            TRAIN_RATE).float().mean().item(),
+               ms=cuda_ms(lambda: mha_forward(*args, rate=TRAIN_RATE,
+                                              seed=seed), iters),
+               plain_ms=cuda_ms(lambda: mha_forward_plain(
+                   *args, TRAIN_RATE, seed), max(iters // 5, 3)),
+               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                   qh, kh, vh, attn_mask=mask, is_causal=causal,
+                   scale=scale, dropout_p=TRAIN_RATE), iters),
+               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               flops=flops)
+    row["ok"] = err_o <= tol and err_lse <= TOL_BF16["lse"]
+    emit(row)
+    rows["forward"] = row
+    if not row["ok"]:
+        raise AssertionError("mha_forward (dropout) disagrees with its plain "
+                             "version at %s: %s" % (name, row))
+
+    for rate in (0.0, TRAIN_RATE):
+        o, lse = mha_forward(*args, rate=rate, seed=seed)
+        do = torch.randn(o.shape, device="cuda").to(dtype)
+        bargs = (q, k, v, bias, seed, o, lse, do, heads, causal, scale,
+                 use_bias, rate)
+        got = mha_backward(*bargs)
+        want = mha_backward_plain(*bargs)
+        torch.cuda.synchronize()
+        errs = {"rel_err_" + n: rel_err(g, w)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        abs_errs = {"max_abs_err_" + n: abs_err(g, w)
+                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        out = F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=causal, scale=scale,
+            dropout_p=rate)
+        doh = do.view(b, tq, heads, c // heads).transpose(1, 2)
+        bound_ms, bound_by, nbytes, flops = mha_backward_bound(
+            b, tq, tk, c, heads, causal, use_bias, dtype)
+        row = dict(shape, phase="train_kernel_check", kernel="mha_backward",
+                   rate=rate, tol=tol, **errs, **abs_errs,
+                   **{"max_abs_" + n: w.float().abs().max().item()
+                      for n, w in zip(("dq", "dk", "dv"), want)},
+                   ms=cuda_ms(lambda: mha_backward(*bargs), iters),
+                   plain_ms=cuda_ms(lambda: mha_backward_plain(*bargs),
+                                    max(iters // 5, 3)),
+                   library_ms=cuda_ms(lambda: torch.autograd.grad(
+                       out, (qh, kh, vh), doh, retain_graph=True), iters),
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   flops=flops)
+        row["ok"] = max(errs.values()) <= tol and \
+            all(bool(torch.isfinite(g).all()) for g in got)
+        emit(row)
+        rows["backward_%g" % rate] = row
+        if not row["ok"]:
+            raise AssertionError("mha_backward disagrees with its plain "
+                                 "version at %s: %s" % (name, row))
+    return rows
+
+
+def check_layernorm(name, rng, n, c, launches_per_step,
+                    dtype=torch.bfloat16, iters=50):
+    x = torch.from_numpy((rng.randn(n, c) * 2 + 0.5).astype(
+        np.float32)).to("cuda", dtype)
+    gamma = torch.from_numpy((1 + 0.1 * rng.randn(c)).astype(
+        np.float32)).cuda()
+    beta = torch.from_numpy((0.1 * rng.randn(c)).astype(np.float32)).cuda()
+    dy = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(
+        "cuda", dtype)
+    got = layer_norm_backward(x, gamma, dy)
+    want = layer_norm_backward_plain(x, gamma, dy)
+    torch.cuda.synchronize()
+    errs = {n_: rel_err(g, w) for n_, g, w in
+            zip(("dx", "dgamma", "dbeta"), got, want)}
+    # the library call: aten's LayerNorm backward from its own forward's
+    # statistics (E[(x - mean)^2], so no error is compared)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(
+        x, [c], gamma.to(dtype), beta.to(dtype), 1e-6)
+    bound_ms, bound_by, nbytes, flops = layernorm_bound(n, c, dtype)
+    tol = TOL_LN[dtype]
+    row = {"phase": "train_kernel_check", "kernel": "layer_norm_backward",
+           "case": name, "dtype": str(dtype), "rows": n, "C": c,
+           "launches_per_train_step": launches_per_step,
+           **{"rel_err_" + k: v for k, v in errs.items()},
+           "max_abs_err_dx": abs_err(got[0], want[0]),
+           "max_abs_dx": want[0].float().abs().max().item(),
+           **{"tol_" + k: v for k, v in tol.items()},
+           "ms": cuda_ms(lambda: layer_norm_backward(x, gamma, dy), iters),
+           "plain_ms": cuda_ms(lambda: layer_norm_backward_plain(
+               x, gamma, dy), max(iters // 5, 3)),
+           "library_ms": cuda_ms(
+               lambda: torch.ops.aten.native_layer_norm_backward(
+                   dy, x, [c], mean, rstd, gamma.to(dtype), beta.to(dtype),
+                   [True, True, True]), iters),
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "flops": flops}
+    row["ok"] = all(errs[k] <= tol[k] for k in errs) and \
+        all(bool(torch.isfinite(g).all()) for g in got)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("layer_norm_backward disagrees with its plain "
+                             "version at %s: %s" % (name, row))
+    return row
+
+
+def train_kernel_phase(seed):
+    """The train step's kernel calls at the flagship shapes (B=16, T_in=192,
+    T_out=448), then edges and fp32."""
+    rng = np.random.RandomState(seed + 10)
+    enc_len = rng.randint(96, 193, 16)
+    rows = {}
+    rows["encoder"] = check_train_attention(
+        "train_encoder", rng, 16, 192, 192, 512, 8, False, enc_len, 6)
+    rows["decoder_causal"] = check_train_attention(
+        "train_decoder_causal", rng, 16, 448, 448, 768, 8, True, None, 6)
+    rows["cross"] = check_train_attention(
+        "train_cross", rng, 16, 448, 192, 768, 8, False, enc_len, 6,
+        cross=True)
+    check_train_attention("train_tq600_causal", rng, 2, 600, 600, 768, 8,
+                          True, None, 0, iters=5)
+    check_train_attention("train_tk77_cross", rng, 3, 45, 77, 768, 8, False,
+                          [77, 50, 1], 0, cross=True, iters=5)
+    check_train_attention("train_encoder_fp32", rng, 16, 192, 192, 512, 8,
+                          False, enc_len, 0, dtype=torch.float32, iters=5)
+    rows["ln_encoder"] = check_layernorm("ln_encoder", rng, 16 * 192, 512,
+                                         13)
+    rows["ln_decoder"] = check_layernorm("ln_decoder", rng, 16 * 448, 768,
+                                         19)
+    check_layernorm("ln_rows7_c48", rng, 7, 48, 0, iters=5)
+    check_layernorm("ln_decoder_fp32", rng, 16 * 448, 768, 0,
+                    dtype=torch.float32, iters=10)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path
 # ---------------------------------------------------------------------------
 
 def flagship_batch(hp, seed, b=8, t_in=192):
@@ -260,16 +527,22 @@ def main_path_phase(seed):
                      collect_alignments=False, max_frames=8)
     torch.cuda.synchronize()
 
-    mha_forward.launches = 0
+    mha_forward.launches = mha_backward.launches = 0
+    layer_norm_backward.launches = 0
     tic = time.perf_counter()
     out = synthesize_batch(model, batch, hp, deterministic=True,
                            collect_alignments=False, max_frames=frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
-    launches = mha_forward.launches
-    if launches != hp.n_encoder_layer:
-        raise AssertionError("main path launched the kernel %d times, "
-                             "expected %d" % (launches, hp.n_encoder_layer))
+    counts = {"mha_forward": mha_forward.launches,
+              "mha_backward": mha_backward.launches,
+              "layer_norm_backward": layer_norm_backward.launches}
+    launches = counts["mha_forward"]
+    if counts != {"mha_forward": hp.n_encoder_layer, "mha_backward": 0,
+                  "layer_norm_backward": 0}:
+        raise AssertionError("main path launched the kernels %s times, "
+                             "expected %d forward calls and no backward"
+                             % (counts, hp.n_encoder_layer))
     mel = out["mel_aft"]
     if mel.shape != (8, frames, hp.num_mels) or \
             not np.isfinite(mel).all() or \
@@ -291,7 +564,8 @@ def main_path_phase(seed):
 
     row = {"phase": "main_path", "config": "default_config (flagship)",
            "B": 8, "T_in": 192, "max_frames": frames,
-           "kernel_launches": launches, "wall_s": wall,
+           "kernel_launches": launches, "launches_by_kernel": counts,
+           "wall_s": wall,
            "frames": n_frames, "frames_per_s": n_frames / wall,
            "rtf": wall / n_frames * 80, "encoder_ms": enc_ms,
            "encoder_max_abs_err_vs_plain": enc_err, "tol_encoder": TOL_ENCODER,
@@ -323,14 +597,35 @@ def main_path_phase(seed):
           "frames_per_s": int(np.sum(out_d["generated_lengths"])) / wall_d,
           "kernel_launches": mha_forward.launches - before})
     profile_phase(model, hp, batch)
-    return model, launches
+    return model, counts
+
+
+def device_kernels(prof):
+    """(device kernels by name, annotation ranges): the ranges that annotate
+    host code on the device timeline (``Optimizer.step#...``) span kernels
+    that are listed too, so they stay out of the busy time."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    # kernel names are demangled C++ ("{lambda()#3}"): a range has a "#"
+    # and no "::"
+    is_range = lambda e: getattr(e, "is_user_annotation", False) or \
+        ("#" in e.key and "::" not in e.key)
+    return ([e for e in events if not is_range(e)],
+            [e for e in events if is_range(e)])
+
+
+def top_events(events, n):
+    return [{"name": e.key[:80], "count": e.count,
+             "ms": e.self_device_time_total / 1e3}
+            for e in sorted(events,
+                            key=lambda e: -e.self_device_time_total)[:n]]
 
 
 def profile_phase(model, hp, batch, frames=64):
     """Where a short synthesis call spends its time: device busy time (sum
     of CUDA kernel times from torch.profiler) against the unprofiled wall
     time of the same call, kernel launches per frame, and the top kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def call():
@@ -345,24 +640,21 @@ def profile_phase(model, hp, batch, frames=64):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         call()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels, ranges = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     emit({"phase": "profile", "frames": frames, "B": 8,
           "wall_ms_unprofiled": wall_ms,
           "device_busy_ms": busy_ms if kernels else None,
           "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
           "kernel_launches": launches,
           "launches_per_frame": launches / frames,
-          "top_kernels": [{"name": e.key[:80], "count": e.count,
-                           "ms": e.self_device_time_total / 1e3}
-                          for e in top]})
+          "top_kernels": top_events(kernels, 6),
+          "annotation_ranges_excluded": top_events(ranges, 6)})
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the CLI
+# phase 6: the CLI
 # ---------------------------------------------------------------------------
 
 def cli_phase(model, out_dir):
@@ -401,12 +693,317 @@ def cli_phase(model, out_dir):
     os.remove(ckpt)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the train step at flagship width
+# ---------------------------------------------------------------------------
+
+def train_step_matmul_flops(hp, b, t_in, t_out) -> float:
+    """Analytic matmul FLOPs of one training step (own copy of the JAX
+    package's bench.py count): projections, attention logits/context, FFNs,
+    prenet/postnet/heads, forward + 2x for backward; norms and elementwise
+    work excluded, so the MFU it gives is conservative."""
+    he, hd = hp.encoder_hidden, hp.decoder_hidden
+    enc = hp.n_encoder_layer * (
+        24 * b * t_in * he ** 2          # qkv(3) + out(1) + ffn(8)
+        + 4 * b * t_in ** 2 * he)        # attention logits + context
+    dec = hp.n_decoder_layer * (
+        8 * b * t_out * hd ** 2          # self qkv + out
+        + 4 * b * t_out ** 2 * hd        # causal self-attention
+        + 4 * b * t_out * hd ** 2        # cross q + out
+        + 4 * b * t_in * hd ** 2         # cross kv over the hd-wide memory
+        + 4 * b * t_out * t_in * hd      # cross logits + context
+        + 16 * b * t_out * hd ** 2)      # ffn
+    p = hp.prenet_hidden
+    prenet = 2 * b * t_out * (hp.num_mels * p + p * p + p * hd)
+    heads_ = 2 * b * t_out * hd * (hp.num_mels + 1)
+    ph = hp.postnet_hidden
+    post_ch = ([hp.num_mels] + [ph] * (hp.n_postnet_layer - 1) +
+               [hp.num_mels])
+    postnet = sum(2 * b * t_out * 5 * post_ch[i] * post_ch[i + 1]
+                  for i in range(hp.n_postnet_layer))
+    return 3.0 * (enc + dec + prenet + heads_ + postnet)
+
+
+def train_batch(hp, seed, b=16, t_in=192, t_out=448):
+    """A synthetic feeder-style batch (numpy) at the flagship train shape;
+    the first row has the full lengths."""
+    rng = np.random.RandomState(seed + 2)
+    input_lengths = rng.randint(t_in // 2, t_in + 1, b).astype(np.int32)
+    target_lengths = rng.randint(t_out // 2, t_out + 1, b).astype(np.int32)
+    input_lengths[0], target_lengths[0] = t_in, t_out
+    mel = np.clip(rng.randn(b, t_out, hp.num_mels), -4, 4).astype(np.float32)
+    mel[np.arange(t_out)[None, :] >= target_lengths[:, None]] = 0.0
+    return dict(
+        inputs=rng.randint(3, 255, (b, t_in)).astype(np.int32),
+        input_lengths=input_lengths, mel_targets=mel,
+        target_lengths=target_lengths,
+        input_spk_ids=rng.randint(0, hp.max_num_speaker, b).astype(np.int32),
+        input_language_vecs=np.eye(hp.max_num_language, dtype=np.float32)[
+            rng.randint(0, 38, b)])
+
+
+def loss_and_grads(model, batch, hp):
+    """One forward/backward at dropout 0: (loss, {name: grad})."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    out = model(batch["inputs"], batch["input_lengths"],
+                batch["mel_targets"], batch["target_lengths"],
+                batch["input_spk_ids"], batch["input_language_vecs"],
+                train=True, generator=None)
+    loss = compute_loss(model, batch["mel_targets"], batch["target_lengths"],
+                        out, hp)["loss"]
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()}
+
+
+def step_agreement(hp, seed, batch, dtype):
+    """One step at dropout 0, kernel path vs plain path on the card."""
+    hp0 = hp.replace(transformer_dropout_rate=0.0, decoder_dropout_rate=0.0,
+                     use_bfloat16=dtype == torch.bfloat16)
+    kernel = init_weights_(ByteToMel(hp0, device="cuda"), seed)
+    plain = ByteToMel(hp0.replace(use_pallas_attention=False,
+                                  use_fused_layernorm=False), device="cuda")
+    plain.load_state_dict(kernel.state_dict())
+    before = (mha_forward.launches, mha_backward.launches,
+              layer_norm_backward.launches)
+    loss_k, grads_k = loss_and_grads(kernel, batch, hp0)
+    launched = (mha_forward.launches - before[0],
+                mha_backward.launches - before[1],
+                layer_norm_backward.launches - before[2])
+    loss_p, grads_p = loss_and_grads(plain, batch, hp0)
+    errs = {n: ((grads_k[n] - grads_p[n]).norm() /
+                grads_p[n].norm().clamp_min(1e-30)).item() for n in grads_p}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    tol = TOL_STEP[dtype]
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    row = {"phase": "train_step_agreement", "dtype": str(dtype),
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": loss_err, "tol_loss": tol["loss"],
+           "grad_leaves": len(errs), "max_grad_rel_err": worst[0][1],
+           "median_grad_rel_err": float(np.median(list(errs.values()))),
+           "worst_leaves": worst, "tol_grad": tol["grad"],
+           "kernel_calls": launched}
+    row["ok"] = loss_err <= tol["loss"] and worst[0][1] <= tol["grad"] and \
+        launched == (18, 18, 32) and all(
+            bool(torch.isfinite(g).all()) for g in grads_k.values())
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("the kernel train step disagrees with the plain "
+                             "path: %s" % row)
+    return kernel.state_dict()
+
+
+def train_profile(model, optimizer, scheduler, batch, hp, seed, step,
+                  wall_ms):
+    """One step under torch.profiler: device busy time against the
+    unprofiled step time, launches, and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step(model, optimizer, scheduler, batch, hp,
+                   step_generator(seed, step, "cuda"))
+        torch.cuda.synchronize()
+    kernels, ranges = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return {"phase": "train_profile", "wall_ms_unprofiled": wall_ms,
+            "device_busy_ms": busy_ms if kernels else None,
+            "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top_kernels": top_events(kernels, 10),
+            "annotation_ranges_excluded": top_events(ranges, 8)}
+
+
+def train_phase(seed, steps=10):
+    """The training path: kernel/plain agreement at dropout 0 (bf16, fp32),
+    then ``steps`` Adam steps at the default dropout rates through
+    train_step, counted, timed and profiled."""
+    hp = default_config()
+    host = train_batch(hp, seed)
+    batch = device_batch(host, hp, "cuda")
+    state = step_agreement(hp, seed, batch, torch.bfloat16)
+    step_agreement(hp, seed, batch, torch.float32)
+
+    model = ByteToMel(hp, device="cuda")
+    model.load_state_dict(state)
+    optimizer, scheduler = make_optimizer(model, hp)
+    frames = int(host["target_lengths"].sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mha_forward.launches = mha_backward.launches = 0
+    layer_norm_backward.launches = 0
+    losses, times, per_step = [], [], []
+    for step in range(steps):
+        before = (mha_forward.launches, mha_backward.launches,
+                  layer_norm_backward.launches)
+        tic = time.perf_counter()
+        out = train_step(model, optimizer, scheduler, batch, hp,
+                         step_generator(seed, step, "cuda"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - tic)
+        losses.append(out["loss"])
+        per_step.append((mha_forward.launches - before[0],
+                         mha_backward.launches - before[1],
+                         layer_norm_backward.launches - before[2]))
+    counts = {"mha_forward": mha_forward.launches,
+              "mha_backward": mha_backward.launches,
+              "layer_norm_backward": layer_norm_backward.launches}
+    losses = torch.stack(losses).float().cpu().numpy().tolist()
+    sec = float(np.median(times[2:]))
+    flops = train_step_matmul_flops(hp, 16, 192, 448)
+    row = {"phase": "train", "config": "default_config (flagship)",
+           "B": 16, "T_in": 192, "T_out": 448, "steps": steps,
+           "dropout": [hp.transformer_dropout_rate, hp.decoder_dropout_rate],
+           "losses": losses, "step_s": times, "sec_per_step": sec,
+           "frames": frames,
+           "audio_s_per_s": frames * hp.frame_shift_ms / 1000.0 / sec,
+           "matmul_flops_per_step": flops,
+           "mfu": flops / sec / PEAK_FLOPS_PER_S[torch.bfloat16],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "kernel_calls": counts, "kernel_calls_per_step": per_step}
+    row["ok"] = all(np.isfinite(losses)) and losses[-1] < losses[0] and \
+        all(c == (18, 18, 32) for c in per_step)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("train phase failed: %s" % row)
+    emit(train_profile(model, optimizer, scheduler, batch, hp, seed, steps,
+                       sec * 1e3))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the training CLI
+# ---------------------------------------------------------------------------
+
+# small widths with the kernels' head dims: encoder 128 / 2 heads (D=64),
+# decoder 128 + 16 + 48 = 192 / 2 heads (D=96)
+CLI_HPARAMS = ("embed_size=128,encoder_hidden=128,decoder_hidden=192,"
+               "speaker_embedding_size=16,language_embedding_size=48,"
+               "n_attention_head=2,n_encoder_layer=2,n_decoder_layer=2,"
+               "prenet_hidden=64,postnet_hidden=64,n_postnet_layer=3,"
+               "max_num_speaker=8,max_num_language=8,bucket_size=16,"
+               "data_warmup_steps=0,batch_frame_limit=4000,"
+               "batch_frame_quad_limit=4000000,max_generation_frames=32,"
+               "n_iter=4")
+
+
+def write_corpus(root, seed, num_mels=80):
+    """mels.zip, metadata and id maps: 2 languages x 12 utterances."""
+    import io
+    import zipfile
+    rng = np.random.RandomState(seed)
+    rows, spk_to_id, lang_to_id = [], {}, {}
+    with zipfile.ZipFile(os.path.join(root, "mels.zip"), "w") as zf:
+        for lang in ["en-us", "de-de"]:
+            lang_to_id[lang] = len(lang_to_id)
+            spk = lang[:2] + "0"
+            spk_to_id[spk] = len(spk_to_id)
+            for i in range(12):
+                name = "%s_%010d" % (spk, i)
+                t = int(rng.randint(20, 60))
+                buf = io.BytesIO()
+                np.save(buf, np.clip(rng.randn(t, num_mels), -4, 4).astype(
+                    np.float32))
+                zf.writestr(name + ".npy", buf.getvalue())
+                rows.append("%s.npy|%d|hello number %d|%s" % (name, t, i,
+                                                              lang))
+    with open(os.path.join(root, "metadata.train.txt"), "w") as f:
+        f.write("\n".join(rows))
+    with open(os.path.join(root, "metadata.eval.txt"), "w") as f:
+        f.write("\n".join(rows[:2]))
+    with open(os.path.join(root, "lang_id.json"), "w") as f:
+        json.dump(lang_to_id, f)
+    with open(os.path.join(root, "spk_id.json"), "w") as f:
+        json.dump(spk_to_id, f)
+
+
+def train_cli_phase(out_dir, seed):
+    import shutil
+    from few_shot_transformer_tts_torch.train import cli
+    from few_shot_transformer_tts_torch.train.checkpoint import find_ckpt
+    root = os.path.join(out_dir, "train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    write_corpus(root, seed)
+    argv = ["--model-dir", os.path.join(root, "models"),
+            "--log-dir", os.path.join(root, "logs"), "--data-dir", root,
+            "--checkpoint_interval", "3", "--summary_interval", "2",
+            "--hparams", CLI_HPARAMS, "--seed", str(seed)]
+    # the CLI logs to stdout; its lines (and those of the feeder threads
+    # that outlive it) go to a file that stays open
+    log = open(os.path.join(root, "train_cli.log"), "w")
+    mha_forward.launches = mha_backward.launches = 0
+    layer_norm_backward.launches = 0
+    with contextlib.redirect_stdout(log):
+        tic = time.perf_counter()
+        _, step = cli.main(argv + ["--max_steps", "3"])
+        first_s = time.perf_counter() - tic
+        # a second run resumes from model.ckpt-3 and its feeder state
+        _, resumed = cli.main(argv + ["--max_steps", "4"])
+    counts = {"mha_forward": mha_forward.launches,
+              "mha_backward": mha_backward.launches,
+              "layer_norm_backward": layer_norm_backward.launches}
+    ckpt = find_ckpt(os.path.join(root, "models"))
+    eval_dir = os.path.join(root, "logs", "eval_3")
+    row = {"phase": "train_cli", "steps": step, "resumed_to": resumed,
+           "wall_s_first_run": first_s, "latest_checkpoint":
+           os.path.basename(ckpt or ""), "kernel_calls": counts,
+           "feeder_state": os.path.exists(
+               os.path.join(root, "logs", "feeder_0.pkl")),
+           "eval_wavs": sorted(f for f in os.listdir(eval_dir)
+                               if f.endswith(".wav"))
+           if os.path.isdir(eval_dir) else []}
+    row["ok"] = step == 3 and resumed == 4 and row["feeder_state"] and \
+        os.path.exists(os.path.join(root, "models", "model.ckpt-3")) and \
+        row["latest_checkpoint"] == "model.ckpt-3" and \
+        len(row["eval_wavs"]) > 0 and min(counts.values()) > 0
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("train CLI phase failed: %s" % row)
+
+
+KERNEL_SOURCES = {
+    "mha_forward": ("few_shot_transformer_tts_torch/csrc/mha_fwd.cu",
+                    "few_shot_transformer_tts_tpu/ops/"
+                    "pallas_attention_train.py:421"),
+    "mha_backward": ("few_shot_transformer_tts_torch/csrc/mha_bwd.cu",
+                     "few_shot_transformer_tts_tpu/ops/"
+                     "pallas_attention_train.py:484"),
+    "layer_norm_backward": ("few_shot_transformer_tts_torch/csrc/"
+                            "layernorm_bwd.cu",
+                            "few_shot_transformer_tts_tpu/ops/"
+                            "fused_layernorm.py:126"),
+}
+
+
+def kernel_line(name, row, err, launches, by_path):
+    source, replaces = KERNEL_SOURCES[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]}
+
+
+PHASES = ("kernel_check", "train_kernel_check", "main_path", "cli", "train",
+          "train_cli")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out-dir",
                         default=os.path.join(ROOT, "build", "chip_smoke"))
+    parser.add_argument("--phases", default="all",
+                        help="comma-separated subset of %s (debugging; "
+                             "the kernels and ok lines need all)"
+                             % ",".join(PHASES))
     args = parser.parse_args()
+    phases = PHASES if args.phases == "all" else args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error("unknown phases %s" % unknown)
 
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -423,30 +1020,56 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
 
-    # phase 2: build
+    # phase 2: build every source at once
     tic = time.perf_counter()
-    lib = cuda_build.build("mha_fwd")
+    libs = cuda_build.build_all()
     build_s = time.perf_counter() - tic
-    log = lib.with_suffix(".log")
-    ptxas = [l.strip() for l in log.read_text().splitlines()
-             if "registers" in l or "spill" in l] if log.exists() else []
-    emit({"phase": "build", "source": "few_shot_transformer_tts_torch/csrc/"
-          "mha_fwd.cu", "seconds": build_s, "ptxas": ptxas})
+    ptxas = {}
+    for name, lib in libs.items():
+        log = lib.with_suffix(".log")
+        ptxas[name] = [l.strip() for l in log.read_text().splitlines()
+                       if "registers" in l or "spill" in l or
+                       "Compiling entry" in l] if log.exists() else []
+    emit({"phase": "build", "sources": sorted(libs), "seconds": build_s,
+          "ptxas": ptxas})
 
-    rows = kernel_phase(args.seed)
-    model, launches = main_path_phase(args.seed)
-    cli_phase(model, args.out_dir)
+    out = {}
+    if "kernel_check" in phases:
+        out["kernel_check"] = kernel_phase(args.seed)
+    if "train_kernel_check" in phases:
+        out["train_kernel_check"] = train_kernel_phase(args.seed)
+    if "main_path" in phases or "cli" in phases:
+        out["model"], out["synthesis_launches"] = main_path_phase(args.seed)
+    if "cli" in phases:
+        cli_phase(out["model"], args.out_dir)
+    out.pop("model", None)
+    if "train" in phases:
+        out["train"] = train_phase(args.seed)
+    if "train_cli" in phases:
+        train_cli_phase(args.out_dir, args.seed)
+    if tuple(phases) != PHASES:
+        emit({"partial": list(phases)})
+        return
 
-    enc = rows["encoder"]
-    emit({"kernels": [{
-        "name": "mha_forward", "route": "cuda",
-        "source": "few_shot_transformer_tts_torch/csrc/mha_fwd.cu",
-        "replaces": "few_shot_transformer_tts_tpu/ops/"
-                    "pallas_attention_train.py:421",
-        "launches": launches, "max_abs_err": enc["max_abs_err_o"],
-        "ms": enc["ms"], "plain_ms": enc["plain_ms"],
-        "bound_ms": enc["bound_ms"], "bound_by": enc["bound_by"],
-        "library_ms": enc["library_ms"]}]})
+    rows = out["train_kernel_check"]
+    train = out["train"]
+    paths = lambda name: {
+        "synthesize_batch": out["synthesis_launches"][name],
+        "train_10_steps": train[name]}
+    dec = rows["decoder_causal"]
+    emit({"kernels": [
+        kernel_line("mha_forward", dec["forward"],
+                    dec["forward"]["max_abs_err_o"], train["mha_forward"],
+                    paths("mha_forward")),
+        kernel_line("mha_backward", dec["backward_0.1"],
+                    max(dec["backward_0.1"]["max_abs_err_" + g]
+                        for g in ("dq", "dk", "dv")),
+                    train["mha_backward"], paths("mha_backward")),
+        kernel_line("layer_norm_backward", rows["ln_decoder"],
+                    rows["ln_decoder"]["max_abs_err_dx"],
+                    train["layer_norm_backward"],
+                    paths("layer_norm_backward")),
+    ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -8,13 +8,17 @@ names mirror the JAX package module for module:
 
   config.py        typed hyperparameters, ``k=v,...`` grammar
   frontend/        byte-level text frontend
-  data/            metadata parsing and the synthesis-only FeederEval
-  models/          Byte2Speech model as nn.Modules (reference state-dict names)
-  ops/             LayerNorm, the CUDA attention forward (csrc/mha_fwd.cu),
-                   numpy DSP for Griffin-Lim output
+  data/            metadata, the zip mel store, Feeder and FeederEval
+  models/          Byte2Speech model as nn.Modules (reference state-dict
+                   names), loss and LR schedule
+  ops/             attention forward/backward (csrc/mha_fwd.cu,
+                   csrc/mha_bwd.cu), LayerNorm with its backward kernel
+                   (csrc/layernorm_bwd.cu), numpy DSP for Griffin-Lim output
   infer/           AR synthesis with KV caches
-  train/           weight bridge (JAX variables / reference checkpoints)
-  utils/           logging and plots
+  train/           train step and loop, checkpoints, weight bridge (JAX
+                   variables / reference checkpoints), the training CLI
+                   ``python -m few_shot_transformer_tts_torch.train``
+  utils/           logging, plots, metric windows
   synthesize.py    CLI: ``python -m few_shot_transformer_tts_torch.synthesize``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -4,11 +4,14 @@ An own copy of ``few_shot_transformer_tts_tpu/config.py``: the same field
 names, defaults and ``k=v,...`` override grammar (ints, floats, bools, strings
 and ``[a,b,c]`` lists), so one ``--hparams`` string configures both packages.
 Fields that select TPU-only machinery (mesh axes, the PRNG implementation,
-the fused decode/Adam/LayerNorm kernels) are kept so such strings still parse;
-the port reads only the ones its code paths use.
+the fused decode/Adam kernels) are kept so such strings still parse; the
+port reads only the ones its code paths use.
 
-``use_pallas_attention`` selects the hand-written CUDA attention forward
-(``ops/mha.py``) for the full-sequence attention path on CUDA tensors.
+``use_pallas_attention`` selects the hand-written CUDA attention kernels
+(``ops/mha.py``, forward and backward) for the full-sequence attention path
+on CUDA tensors; ``use_fused_layernorm`` the LayerNorm backward kernel
+(``ops/layernorm.py``); ``wire_mel_int16`` the int16 host-to-device copy of
+the mel targets in training.
 ``use_external_embed=True`` is rejected: the reference declares it but no code
 path reads it.
 """
@@ -110,7 +113,7 @@ class Config:
     use_bfloat16: bool = True
     mesh_data_axis: int = -1
     mesh_model_axis: int = 1
-    # Full-sequence attention through the hand-written kernel (ops/mha.py)
+    # Full-sequence attention through the hand-written kernels (ops/mha.py)
     # when the tensors lie on a CUDA device.
     use_pallas_attention: bool = True
     use_pallas_decode: bool = False

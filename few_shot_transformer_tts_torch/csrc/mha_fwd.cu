@@ -2,16 +2,21 @@
 //
 // Replaces the forward of the TPU kernel `mha_train`
 // (few_shot_transformer_tts_tpu/ops/pallas_attention_train.py, `_fwd` and
-// its body `_fwd_kernel`), at dropout rate 0.  Per (batch, head, query row):
+// its body `_fwd_kernel`).  Per (batch, head, query row):
 //
 //   s   = (q * scale, rounded to the input type) . k^T      fp32
 //   s  += bias[b, key]                 (use_bias: key padding, -1e20)
 //   s   = -1e20 where key > query      (causal)
 //   m   = max_k s,  l = sum_k exp(s - m),  lse = m + log l  (fp32, [B,Tq,H])
-//   o   = (sum_k round(p_k) v_k) * 1/max(l, 1e-30)          (input type)
+//   g   = p where the dropout mask keeps the key, else 0    (rate > 0)
+//   o   = (sum_k round(g_k) v_k) * 1/max(l * keep, 1e-30)   (input type)
 //
-// Keys at or beyond Tk are excluded (the TPU kernel pads them at -1e30, whose
-// exponent is exactly 0 in fp32).
+// Dropout follows the TPU kernel: the mask applies to the unnormalized p,
+// l sums the unmasked p, and 1/keep is folded into the output scale.  The
+// mask bits come from philox.cuh, a pure function of (seed, b, h, q, k), so
+// the backward (mha_bwd.cu) regenerates them.  Rate 0 is its own template
+// instantiation with no mask code.  Keys at or beyond Tk are excluded (the
+// TPU kernel pads them at -1e30, whose exponent is exactly 0 in fp32).
 //
 // Design.  The TPU kernel keeps a whole K/V (up to 2048 x 768) in VMEM; a
 // Hopper block has at most 227 KB of shared memory, so here a block owns 32
@@ -20,11 +25,13 @@
 // Causal blocks stop at the last key their rows can see.  Each of the 8 warps
 // owns 4 query rows; lane j computes the scores of key j for those rows, the
 // row max and sum are warp shuffles, and for P.V lane j accumulates the
-// output dims j, j+32 (and j+64 at D=96).  q, k and v are read through their
-// row strides, so the split views of a fused QKV projection need no copy and
-// no head transpose.  Arithmetic is scalar fp32 FMA from shared memory: the
-// kernel is simple and exact first; tensor cores (mma/wgmma) and TMA are
-// later work.
+// output dims j, j+32 (and j+64 at D=96).  With dropout, each lane draws one
+// Philox block (4 keys of one row) per tile, and the words reach the lanes
+// that own those keys by shuffles: one generator call per 4 scores.  q, k
+// and v are read through their row strides, so the split views of a fused
+// QKV projection need no copy and no head transpose.  Arithmetic is scalar
+// fp32 FMA from shared memory: the kernel is simple and exact first; tensor
+// cores (mma/wgmma) and TMA are later work.
 //
 // Bound.  The function must read q, k, v and bias once and write o and lse
 // once: at the flagship encoder shape (B=8, T=192, C=512, bf16) that is about
@@ -40,6 +47,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -83,16 +92,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32)
 mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const float* __restrict__ bias,
-               T* __restrict__ o, float* __restrict__ lse,
-               int tq, int tk, int num_heads,
+               const long long* __restrict__ seed, T* __restrict__ o,
+               float* __restrict__ lse, int tq, int tk, int num_heads,
                long long q_sb, long long q_sr,
                long long k_sb, long long k_sr,
                long long v_sb, long long v_sr,
-               float scale, int causal, int use_bias) {
+               float scale, int causal, int use_bias, unsigned threshold,
+               float keep_prob) {
   static_assert(D % 32 == 0, "head dim must be a multiple of 32");
   constexpr int kDimsPerLane = D / 32;
 
@@ -112,6 +122,8 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * q_sb + h * D;
   const T* kb = k + b * k_sb + h * D;
   const T* vb = v + b * v_sb + h * D;
+  unsigned long long sd = 0;
+  if (kDropout) sd = static_cast<unsigned long long>(*seed);
 
   // q tile, scaled in fp32 and rounded back to the input type (as the TPU
   // kernel does before its dot); rows beyond Tq are zero and never stored.
@@ -152,6 +164,13 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
+    // lane l draws keys k0 + 4*(l&7) .. +3 of row l>>3 of this warp
+    uint4 bits = make_uint4(0u, 0u, 0u, 0u);
+    if (kDropout)
+      bits = philox::dropout_bits(sd, (k0 >> 2) + (lane & 7),
+                                  q0 + warp * kRowsPerWarp + (lane >> 3), h,
+                                  b);
+
     const int kj = k0 + lane;
     const bool valid = kj < tk;
     float s[kRowsPerWarp];
@@ -173,10 +192,18 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (causal && kj > qi) si = kNegInf;
       if (!valid) si = -INFINITY;
       const float m_new = fmaxf(m[i], warp_max(si));
-      const float p = valid ? expf(si - m_new) : 0.f;
+      float p = valid ? expf(si - m_new) : 0.f;
       const float alpha = expf(m[i] - m_new);  // 0 on the first tile
-      l[i] = l[i] * alpha + warp_sum(p);
+      l[i] = l[i] * alpha + warp_sum(p);       // l sums the unmasked p
       m[i] = m_new;
+      if (kDropout) {
+        const int src = i * 8 + (lane >> 2);
+        const uint4 w = make_uint4(__shfl_sync(0xffffffffu, bits.x, src),
+                                   __shfl_sync(0xffffffffu, bits.y, src),
+                                   __shfl_sync(0xffffffffu, bits.z, src),
+                                   __shfl_sync(0xffffffffu, bits.w, src));
+        if (philox::word(w, lane & 3) < threshold) p = 0.f;
+      }
       // the TPU kernel casts p to v's type before the P.V product
       p_s[warp][i][lane] = round_to<T>(p);
 #pragma unroll
@@ -200,7 +227,7 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int qi = q0 + warp * kRowsPerWarp + i;
     if (qi >= tq) continue;
-    const float r = 1.f / fmaxf(l[i], 1e-30f);
+    const float r = 1.f / fmaxf(kDropout ? l[i] * keep_prob : l[i], 1e-30f);
     T* orow = o + ((long long)b * tq + qi) * (num_heads * D) + h * D;
 #pragma unroll
     for (int d = 0; d < kDimsPerLane; ++d)
@@ -210,42 +237,72 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, void* o, void* lse, int batch, int tq,
-                   int tk, int num_heads, long long q_sb, long long q_sr,
-                   long long k_sb, long long k_sr, long long v_sb,
-                   long long v_sr, float scale, int causal, int use_bias,
+                   const void* bias, const void* seed, void* o, void* lse,
+                   int batch, int tq, int tk, int num_heads, long long q_sb,
+                   long long q_sr, long long k_sb, long long k_sr,
+                   long long v_sb, long long v_sr, float scale, int causal,
+                   int use_bias, unsigned threshold, float keep_prob,
                    cudaStream_t stream) {
   const dim3 grid((tq + kBlockQ - 1) / kBlockQ, num_heads, batch);
-  mha_fwd_kernel<T, D><<<grid, kWarps * 32, 0, stream>>>(
+  mha_fwd_kernel<T, D, kDropout><<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(o), static_cast<float*>(lse), tq, tk, num_heads, q_sb,
-      q_sr, k_sb, k_sr, v_sb, v_sr, scale, causal, use_bias);
+      static_cast<const long long*>(seed), static_cast<T*>(o),
+      static_cast<float*>(lse), tq, tk, num_heads, q_sb, q_sr, k_sb, k_sr,
+      v_sb, v_sr, scale, causal, use_bias, threshold, keep_prob);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dispatch_rate(bool dropout, const void* q, const void* k,
+                          const void* v, const void* bias, const void* seed,
+                          void* o, void* lse, int batch, int tq, int tk,
+                          int num_heads, long long q_sb, long long q_sr,
+                          long long k_sb, long long k_sr, long long v_sb,
+                          long long v_sr, float scale, int causal,
+                          int use_bias, unsigned threshold, float keep_prob,
+                          cudaStream_t stream) {
+  if (dropout)
+    return launch<T, D, true>(q, k, v, bias, seed, o, lse, batch, tq, tk,
+                              num_heads, q_sb, q_sr, k_sb, k_sr, v_sb, v_sr,
+                              scale, causal, use_bias, threshold, keep_prob,
+                              stream);
+  return launch<T, D, false>(q, k, v, bias, seed, o, lse, batch, tq, tk,
+                             num_heads, q_sb, q_sr, k_sb, k_sr, v_sb, v_sr,
+                             scale, causal, use_bias, threshold, keep_prob,
+                             stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 96.  Strides are in
 // elements; the last dim of q, k, v must be contiguous.  bias is [B, Tk]
-// float32 (ignored unless use_bias).  o is [B, Tq, H*D] in the input type,
-// lse [B, Tq, H] float32, both contiguous.
+// float32 (ignored unless use_bias).  seed points at one int64 on the device
+// (read only when dropout != 0); a key is kept when its Philox word is >=
+// threshold, and keep_prob = 1 - rate scales the output.  o is [B, Tq, H*D]
+// in the input type, lse [B, Tq, H] float32, both contiguous.
 extern "C" int mha_fwd(int dtype, int head_dim, const void* q, const void* k,
-                       const void* v, const void* bias, void* o, void* lse,
-                       int batch, int tq, int tk, int num_heads,
-                       long long q_sb, long long q_sr, long long k_sb,
-                       long long k_sr, long long v_sb, long long v_sr,
-                       float scale, int causal, int use_bias, void* stream) {
+                       const void* v, const void* bias, const void* seed,
+                       void* o, void* lse, int batch, int tq, int tk,
+                       int num_heads, long long q_sb, long long q_sr,
+                       long long k_sb, long long k_sr, long long v_sb,
+                       long long v_sr, float scale, int causal, int use_bias,
+                       int dropout, unsigned threshold, float keep_prob,
+                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MHA_ARGS                                                            \
-  q, k, v, bias, o, lse, batch, tq, tk, num_heads, q_sb, q_sr, k_sb, k_sr, \
-      v_sb, v_sr, scale, causal, use_bias, s
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(MHA_ARGS);
-  if (dtype == 0 && head_dim == 96) return launch<float, 96>(MHA_ARGS);
-  if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(MHA_ARGS);
-  if (dtype == 1 && head_dim == 96) return launch<__nv_bfloat16, 96>(MHA_ARGS);
+  const bool drop = dropout != 0;
+#define MHA_ARGS                                                             \
+  drop, q, k, v, bias, seed, o, lse, batch, tq, tk, num_heads, q_sb, q_sr,  \
+      k_sb, k_sr, v_sb, v_sr, scale, causal, use_bias, threshold, keep_prob, \
+      s
+  if (dtype == 0 && head_dim == 64) return dispatch_rate<float, 64>(MHA_ARGS);
+  if (dtype == 0 && head_dim == 96) return dispatch_rate<float, 96>(MHA_ARGS);
+  if (dtype == 1 && head_dim == 64)
+    return dispatch_rate<__nv_bfloat16, 64>(MHA_ARGS);
+  if (dtype == 1 && head_dim == 96)
+    return dispatch_rate<__nv_bfloat16, 96>(MHA_ARGS);
 #undef MHA_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,17 +1,18 @@
-"""Metadata parsing and eval filtering for synthesis.
+"""Metadata parsing, language grouping, downsampling, eval filtering.
 
-Own copy of the parts of ``few_shot_transformer_tts_tpu/data/metadata.py``
-that FeederEval needs (reference dataloader.py:313-398).  Rows are
-``name|n_frames|text|lang`` ('nlti') or ``name|n_frames|text|phones|lang``
-('nltpi'), '|' or tab separated; the speaker id is the name's prefix before
-'_'.  ``filter_eval_samples`` shuffles each language's rows with a fresh
-seed-0 RandomState, so the surviving subset is a pure function of the file.
+Own copy of ``few_shot_transformer_tts_tpu/data/metadata.py`` (reference
+dataloader.py:313-398).  Rows are ``name|n_frames|text|lang`` ('nlti') or
+``name|n_frames|text|phones|lang`` ('nltpi'), '|' or tab separated; the
+speaker id is the name's prefix before '_'.  ``downsample_language`` and
+``filter_eval_samples`` shuffle each language's rows with a fresh seed-0
+RandomState, so the surviving subset is a pure function of the file.
 """
 
 from __future__ import annotations
 
+import logging
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -49,6 +50,49 @@ def read_meta(meta_file, fmt: str, inc_lang=None, inc_spk=None) -> List[dict]:
     return rows
 
 
+def group_meta(metadata: List[dict], hp) -> Dict:
+    """Bucket rows by language and attach temperature-scaled sampling
+    probabilities, prob ~ (n_lang / n_total) ** lg_prob_scale.
+
+    The returned dict drives the balanced sampler: per-language row lists plus
+    mutable cursor ('offsets') and epoch counters, which round-trip through
+    Feeder.state_dict.
+    """
+    by_lang: Dict[str, list] = defaultdict(list)
+    for row in metadata:
+        by_lang[row["i"]].append(row)
+    langs = sorted(by_lang)
+    counts = np.asarray([len(by_lang[lang]) for lang in langs], np.float64)
+    scaled = np.power(counts / counts.sum(), hp.lg_prob_scale)
+    prob = scaled / scaled.sum()
+    for lang, n, p in zip(langs, counts, prob):
+        speakers = sorted({speaker_of(r["n"]) for r in by_lang[lang]})
+        logging.info("\t%s: %d samples, prob=%f", lang, int(n), p)
+        logging.info("\tSpeakers: %s", str(speakers))
+    return {"langs": langs, "prob": prob, "meta": dict(by_lang),
+            "offsets": {lang: 0 for lang in langs},
+            "epoch": {lang: 0 for lang in langs}}
+
+
+def downsample_language(meta_list: List[dict],
+                        downsample_langs: Dict[str, float]) -> List[dict]:
+    """Reduce each listed language to a ratio (spec <= 1) or an absolute
+    count (spec > 1) of its rows, selected by a seed-0 shuffle of the row
+    positions; unlisted languages pass through untouched."""
+    per_lang_positions: Dict[str, list] = defaultdict(list)
+    for pos, row in enumerate(meta_list):
+        if row["i"] in downsample_langs:
+            per_lang_positions[row["i"]].append(pos)
+
+    dropped = set()
+    for lang, positions in per_lang_positions.items():
+        np.random.RandomState(0).shuffle(positions)
+        spec = downsample_langs[lang]
+        n_keep = int(len(positions) * spec) if spec <= 1 else int(spec)
+        dropped.update(positions[n_keep:])
+    return [row for pos, row in enumerate(meta_list) if pos not in dropped]
+
+
 def filter_eval_samples(meta: List[dict], n_spk: int,
                         n_sample: int) -> List[dict]:
     """Per language keep at most ``n_spk`` speakers x ``n_sample`` rows each,
@@ -74,3 +118,14 @@ def filter_eval_samples(meta: List[dict], n_spk: int,
                 picked.append(row)
     np.random.RandomState(0).shuffle(picked)
     return picked
+
+
+def parse_downsample_spec(spec: Optional[str]) -> Dict[str, float]:
+    """CLI form LANG:RATIO_OR_N[,LANG:R...] (reference train.py:96-101)."""
+    if not spec:
+        return {}
+    out = {}
+    for part in spec.split(","):
+        lang, r = part.split(":")
+        out[lang] = float(r)
+    return out

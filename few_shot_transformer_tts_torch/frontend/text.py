@@ -48,3 +48,11 @@ def language_name_to_id(lang_to_id: dict, lang: Union[str, Sequence]) -> List[in
     logging.info("Selected languages: %s", " ".join(id_to_lang[t] for t in out))
     return out
 
+
+
+def language_vec_to_id(lv) -> int:
+    """First positive index of a one-hot language vector, else -1."""
+    for i, v in enumerate(lv):
+        if v > 0:
+            return i
+    return -1

@@ -8,10 +8,13 @@ scaled by ``d_head**-0.5``, an additive bias, softmax in fp32, dropout on the
 attention weights, a bias-free output projection.  ``align`` is the softmax
 transposed to [B, H, memory, query].
 
-The full-sequence path takes the CUDA kernel (``ops/mha.py``) under the JAX
-package's dispatch rule: ``use_kernel`` (``hp.use_pallas_attention``), no
-alignments requested, Tk <= 2048, and CUDA tensors.  Otherwise it takes the
-plain split-head path.
+The full-sequence path takes the CUDA kernels (``ops/mha.py``, forward and
+backward through ``MhaFunction``) under the JAX package's dispatch rule:
+``use_kernel`` (``hp.use_pallas_attention``), no alignments requested,
+Tk <= 2048, and CUDA tensors.  Otherwise it takes the plain split-head path.
+On the kernel path, active dropout runs inside the kernel at
+``dropout_rate``, with a seed drawn per call from the step's generator (the
+JAX package's ``make_rng("dropout")``).
 
 Score and context products upcast their (compute-dtype) operands to fp32, so
 a bf16 run multiplies exactly and accumulates in fp32, as bf16 matmuls with
@@ -27,7 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..ops.mha import mha_forward
+from ..ops.mha import MhaFunction, draw_seed
 from .common import combine_heads, dropout, split_heads
 
 _KERNEL_MAX_KEYS = 2048
@@ -92,9 +95,10 @@ class MultiheadAttention(nn.Module):
             use_bias = not (causal or bias is None)
             bias_vec = bias[:, 0, 0, :].float().contiguous() if use_bias \
                 else None
-            x, _ = mha_forward(q, k, v, bias_vec, self.num_heads, causal,
-                               depth ** -0.5, use_bias,
-                               rate=self.dropout_rate if active else 0.0)
+            rate = self.dropout_rate if active else 0.0
+            seed = draw_seed(generator, q.device) if rate > 0.0 else None
+            x = MhaFunction.apply(q, k, v, bias_vec, seed, self.num_heads,
+                                  causal, depth ** -0.5, use_bias, rate)
             return self.output_transform(x), None
 
         dtype = q.dtype

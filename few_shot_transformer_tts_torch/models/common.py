@@ -69,6 +69,16 @@ def impute(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return x * mask.to(x.dtype)
 
 
+def mask_reduce(loss: torch.Tensor, lengths: torch.Tensor,
+                per_sample: bool = False) -> torch.Tensor:
+    """Length-masked mean of a [B, T] loss (reference transformer/common.py:
+    73-87); per sample, rows of length 0 (lattice padding) divide by 1."""
+    masked = impute(loss, lengths)
+    if per_sample:
+        return masked.sum(-1) / torch.clamp(lengths, min=1)
+    return masked.sum() / lengths.sum()
+
+
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """[B, T, C] -> [B, H, T, C/H]."""
     b, t, c = x.shape

@@ -52,6 +52,12 @@ def _attention(hp: Config, query_size: int, memory_size: int, size: int,
         use_kernel=hp.use_pallas_attention)
 
 
+def _layer_norm(hp: Config, features: int) -> LayerNorm:
+    """eps 1e-6 as the reference's nn.LayerNorm; ``hp.use_fused_layernorm``
+    takes the backward kernel (the JAX package's ``FusedLayerNorm``)."""
+    return LayerNorm(features, eps=1e-6, fused=hp.use_fused_layernorm)
+
+
 class TransformerEncoder(nn.Module):
     """reference transformer/modules.py:23-69."""
 
@@ -62,11 +68,13 @@ class TransformerEncoder(nn.Module):
         sizes = [input_size] + [hidden] * (hp.n_encoder_layer - 1)
         self.self_attentions = nn.ModuleList(
             _attention(hp, s, s, s, True) for s in sizes)
-        self.attn_layer_norms = nn.ModuleList(LayerNorm(s) for s in sizes)
+        self.attn_layer_norms = nn.ModuleList(
+            _layer_norm(hp, s) for s in sizes)
         self.ffn_layers = nn.ModuleList(
             FFNLayer(s, hidden * 4, hidden, self.rate) for s in sizes)
-        self.ffn_layer_norms = nn.ModuleList(LayerNorm(s) for s in sizes)
-        self.output_layer_norm = LayerNorm(hidden)
+        self.ffn_layer_norms = nn.ModuleList(
+            _layer_norm(hp, s) for s in sizes)
+        self.output_layer_norm = _layer_norm(hp, hidden)
         self.pe_scale = nn.Parameter(torch.ones(1))
 
     def forward(self, inputs: torch.Tensor, input_lengths: torch.Tensor,
@@ -113,15 +121,17 @@ class TransformerDecoder(nn.Module):
         sizes = [input_size] + [hidden] * (n - 1)
         self.self_attentions = nn.ModuleList(
             _attention(hp, s, s, s, True) for s in sizes)
-        self.attn_layer_norms = nn.ModuleList(LayerNorm(s) for s in sizes)
+        self.attn_layer_norms = nn.ModuleList(
+            _layer_norm(hp, s) for s in sizes)
         self.encdec_attentions = nn.ModuleList(
             _attention(hp, hidden, input_size, hidden, False) for _ in sizes)
         self.encdec_layer_norms = nn.ModuleList(
-            LayerNorm(hidden) for _ in sizes)
+            _layer_norm(hp, hidden) for _ in sizes)
         self.ffn_layers = nn.ModuleList(
             FFNLayer(hidden, hidden * 4, hidden, self.rate) for _ in sizes)
-        self.ffn_layer_norms = nn.ModuleList(LayerNorm(hidden) for _ in sizes)
-        self.output_layer_norm = LayerNorm(hidden)
+        self.ffn_layer_norms = nn.ModuleList(
+            _layer_norm(hp, hidden) for _ in sizes)
+        self.output_layer_norm = _layer_norm(hp, hidden)
         self.pe_scale = nn.Parameter(torch.ones(1))
 
     # ---------------- teacher-forced path -----------------------------------

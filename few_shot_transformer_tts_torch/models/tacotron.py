@@ -10,9 +10,12 @@ JAX package's variables one to one.
 
 Compute runs in ``hp.use_bfloat16`` ? bf16 : fp32 (the modules' ``dtype``);
 parameters are fp32.  LN/BN statistics, softmax, biases and ``pe_scale``
-stay fp32 as in the JAX package; mel and stop outputs are fp32.  Loss, the LR
-schedule and the masked batch statistics of training come with the training
-slice.
+stay fp32 as in the JAX package; mel and stop outputs are fp32.
+
+Training (reference transformer/tacotron.py:136-179): ``compute_loss`` (bef/
+aft masked MSE, masked stop BCE with pos_weight 5, L2 over the Linear and
+Conv1d weights), ``learning_rate_schedule``, and ``MaskedBatchNorm``'s
+length-masked batch statistics.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from torch.nn import functional as F
 from ..config import Config
 from ..utils.device import resolve_device
 from .attention import Linear
-from .common import dropout, impute
+from .common import dropout, impute, length_mask, mask_reduce
 from .modules import TransformerDecoder, TransformerEncoder
 
 
@@ -115,19 +118,22 @@ class DecoderPrenet(nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over (batch, time) in running-average mode.
-
-    The JAX package masks padded frames out of the batch statistics when
-    training (a deliberate divergence from torch BatchNorm1d); eval uses the
-    stored running statistics, which is all synthesis needs.  The masked
-    batch statistics come with the training slice.  Buffers carry the torch
-    names, ``num_batches_tracked`` included, so reference checkpoints load.
+    """BatchNorm over (batch, time) with padded frames excluded from the
+    batch statistics (the JAX package's divergence from torch BatchNorm1d:
+    the train step does not depend on how much lattice padding a batch
+    carries).  Normalization uses the biased variance; the running
+    statistics take ``0.9 * old + 0.1 * new`` with the unbiased variance,
+    outside autograd.  Eval uses the running statistics.  Buffers carry the
+    torch names, ``num_batches_tracked`` included, so reference checkpoints
+    load.
     """
 
-    def __init__(self, features: int, dtype: torch.dtype, eps: float = 1e-5):
+    def __init__(self, features: int, dtype: torch.dtype, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.dtype = dtype
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -136,11 +142,22 @@ class MaskedBatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.long))
 
     def forward(self, x, lengths, use_running_average: bool = True):
-        if not use_running_average:
-            raise NotImplementedError(
-                "masked batch statistics come with the training slice")
-        y = (x.float() - self.running_mean) * \
-            torch.rsqrt(self.running_var + self.eps)
+        xf = x.float()
+        if use_running_average:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mask = length_mask(lengths, x.shape[1]).float()[..., None]
+            n = torch.clamp(mask.sum(), min=1.0)
+            mean = (xf * mask).sum((0, 1)) / n
+            var = (torch.square(xf - mean) * mask).sum((0, 1)) / n
+            with torch.no_grad():
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+                self.running_mean.copy_(self.momentum * self.running_mean +
+                                        (1.0 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var +
+                                       (1.0 - self.momentum) * unbiased)
+                self.num_batches_tracked.add_(1)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(self.dtype)
 
 
@@ -330,3 +347,57 @@ def init_weights_(model: ByteToMel, seed: int) -> ByteToMel:
                     leaf == "bias" and "norm" in name):
                 t.zero_()
     return model
+
+
+# ---------------------------------------------------------------------------
+# loss and LR schedule (reference transformer/tacotron.py:136-179)
+# ---------------------------------------------------------------------------
+
+
+def l2_loss(model: nn.Module) -> torch.Tensor:
+    """sum(w^2) / 2 over the Linear and Conv1d weights (the JAX package's
+    Dense/Conv ``kernel`` leaves); embeddings, norms, biases and
+    ``pe_scale`` are excluded (reference tacotron.py:144-146)."""
+    total = 0.0
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv1d)):
+            total = total + torch.sum(torch.square(mod.weight.float())) / 2
+    return total
+
+
+def compute_loss(model: nn.Module, mel_targets, target_lengths, outputs,
+                 hp: Config) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``compute_loss``: loss = bef + aft + L2 + stop."""
+    bef = torch.mean(torch.square(outputs["mel_bef"] - mel_targets), dim=-1)
+    bef_loss = mask_reduce(bef, target_lengths)
+    aft = torch.mean(torch.square(outputs["mel_aft"] - mel_targets), dim=-1)
+    aft_loss_samplewise = mask_reduce(aft, target_lengths, per_sample=True)
+    aft_loss = mask_reduce(aft, target_lengths)
+    l2_reg = hp.reg_weight * l2_loss(model)
+
+    t = mel_targets.shape[1]
+    stop_target = (torch.arange(t, device=mel_targets.device)[None, :] ==
+                   (target_lengths[:, None] - 1)).float()
+    x = outputs["stop_logits"]
+    # BCE-with-logits, pos_weight=5 (reference tacotron.py:150-151)
+    ce = 5.0 * stop_target * F.softplus(-x) + \
+        (1.0 - stop_target) * F.softplus(x)
+    ce_loss = mask_reduce(ce, target_lengths)
+
+    mse_loss = (bef_loss + aft_loss) / 2
+    loss = bef_loss + aft_loss + l2_reg + ce_loss
+    return {"loss": loss, "bef_loss": bef_loss, "aft_loss": aft_loss,
+            "aft_losses": aft_loss_samplewise, "mse_loss": mse_loss,
+            "l2": l2_reg, "stop_loss": ce_loss}
+
+
+def lr_factor(global_step: int, hp: Config) -> float:
+    """The LR at a step over ``hp.max_lr`` (reference tacotron.py:176-179)."""
+    step = max(global_step - hp.warmup_steps, 0)
+    rate = hp.lr_decay_rate ** (step / hp.lr_decay_step)
+    return max(hp.min_lr / hp.max_lr, rate)
+
+
+def learning_rate_schedule(global_step: int, hp: Config) -> float:
+    """Absolute LR at a step (reference tacotron.py:176-179 x max_lr)."""
+    return hp.max_lr * lr_factor(global_step, hp)

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/torch_kernels/lib<name>-<hash>.so`` at
 the repository root, at first use, and loaded with ``ctypes``.  The hash
-covers the source and the flags, so an edited source is rebuilt.  The
-compiler's output (``-Xptxas -v``: registers, shared memory, spills) is kept
-beside the library as ``.log``.
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source is rebuilt.  The compiler's output (``-Xptxas -v``: registers,
+shared memory, spills) is kept beside the library as ``.log``.
+``build_all`` starts one ``nvcc`` per source at once.
 
 There is no fallback: without ``nvcc`` the build raises, and a CUDA tensor
 handed to a kernel wrapper then raises with it.
@@ -45,30 +46,62 @@ def find_nvcc() -> str:
         "kernels cannot be built, and CUDA tensors have no other path" % home)
 
 
+def sources() -> list:
+    """The names of every kernel source, ``csrc/<name>.cu``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / (name + ".cu")
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / ("lib%s-%s.so" % (name, digest))
+    h = hashlib.sha256((CSRC_DIR / (name + ".cu")).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("lib%s-%s.so" % (name, h.hexdigest()[:16]))
+
+
+def _start(name: str):
+    """(library path, nvcc process or None when the library exists)."""
+    out = library_path(name)
+    if out.exists():
+        return out, None
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(out.name + ".tmp%d" % os.getpid())
+    proc = subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / (name + ".cu"))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return out, proc
+
+
+def _finish(name: str, out: Path, proc) -> Path:
+    if proc is None:
+        return out
+    log = proc.communicate()[0]
+    tmp = out.with_name(out.name + ".tmp%d" % os.getpid())
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed to build %s.cu:\n%s" % (name, log))
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    return out
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the library for its hash exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    nvcc = find_nvcc()
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + ".tmp%d" % os.getpid())
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / (name + ".cu"))],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed to build %s.cu:\n%s"
-                           % (name, proc.stdout + proc.stderr))
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    return out
+    return _finish(name, *_start(name))
+
+
+def build_all() -> dict:
+    """Build every source at once (one nvcc each); {name: library path}."""
+    started = {name: _start(name) for name in sources()}
+    built, errors = {}, []
+    for name, job in started.items():   # wait for every nvcc, then raise
+        try:
+            built[name] = _finish(name, *job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return built
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,19 +1,29 @@
-"""Multi-head attention forward in the packed [B, T, H*D] layout.
+"""Multi-head attention forward and backward in the packed [B, T, H*D] layout.
 
-Counterpart of the forward of ``mha_train``
-(``few_shot_transformer_tts_tpu/ops/pallas_attention_train.py``) at dropout
-rate 0.  ``mha_forward`` launches the hand-written CUDA kernel
-``csrc/mha_fwd.cu`` for CUDA tensors and takes ``mha_forward_plain``, the same
-math in plain PyTorch, only for CPU tensors.  The plain version is also what
-the tests and ``chip_smoke.py`` hold the kernel against; nothing on the main
-path calls it when a card is present.
+Counterpart of ``mha_train`` (``few_shot_transformer_tts_tpu/ops/
+pallas_attention_train.py``): its forward with post-softmax dropout and its
+flash backward.  ``mha_forward`` launches ``csrc/mha_fwd.cu`` and
+``mha_backward`` launches ``csrc/mha_bwd.cu`` for CUDA tensors; for CPU
+tensors each takes its plain version (``mha_forward_plain``,
+``mha_backward_plain``), the same math in plain PyTorch.  The plain versions
+are also what the tests and ``chip_smoke.py`` hold the kernels against;
+nothing on the main path calls them when a card is present.
+``MhaFunction`` is the autograd Function over the pair.
 
 Semantics kept from the TPU kernel: q is scaled in fp32 and rounded back to
 its type before the dot; scores, the softmax statistics and ``lse = m + log l``
 are fp32; causal masking writes -1e20; keys at or beyond Tk are excluded;
-``p`` is cast to v's type before the P.V product; ``o = acc / max(l, 1e-30)``
-in q's type.  ``lse`` is returned [B, Tq, H] for the backward of the training
-slice, which also brings dropout (``rate > 0`` raises until then).
+dropout masks the unnormalized ``p`` (``l`` sums the unmasked ``p``) and
+``1/keep`` folds into the output scale; ``p`` is cast to v's type before the
+P.V product; ``o = acc / max(l * keep, 1e-30)`` in q's type.  ``lse`` is
+[B, Tq, H].  The backward rounds where the TPU kernel does: do and o in fp32,
+``g`` and ``do/keep`` in the input type for dv, one ``ds * scale`` rectangle
+in the input type for dq and dk.
+
+The dropout mask is a pure function of (seed, b, h, q, k):
+``dropout_keep_mask`` (Philox-4x32-10, the same bits as ``csrc/philox.cuh``).
+The seed is an int64 tensor of one element on the tensors' device, so no
+call waits on the device to read it.
 """
 
 from __future__ import annotations
@@ -29,36 +39,127 @@ NEG_INF = -1e20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 96)
 
+# Philox-4x32-10 constants (csrc/philox.cuh)
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+
 
 def _split_heads_f32(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     b, t, c = x.shape
     return x.reshape(b, t, num_heads, c // num_heads).transpose(1, 2).float()
 
 
-def mha_forward_plain(q, k, v, bias, num_heads: int, causal: bool,
-                      scale: float, use_bias: bool):
-    """Plain PyTorch version of the kernel: (o [B,Tq,H*D], lse [B,Tq,H])."""
-    b, tq, c = q.shape
-    tk = k.shape[1]
+def _combine_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d).to(dtype)
+
+
+def dropout_threshold(rate: float) -> int:
+    """A key is kept when its 32-bit word is >= this (``_mask_from_bits``)."""
+    return int(min(rate, 1.0) * 4294967296.0)
+
+
+def _mulhilo(m: int, c: torch.Tensor):
+    """(hi, lo) 32-bit halves of m * c for uint32 values held in int64,
+    without overflowing int64."""
+    a = c * (m & 0xFFFF)
+    b = c * (m >> 16)
+    t = a + ((b & 0xFFFF) << 16)
+    return (b >> 16) + (t >> 32), t & _MASK32
+
+
+def philox4x32_10(c0, c1, c2, c3, k0, k1):
+    """Philox-4x32-10 over int64 tensors of uint32 values (broadcasting)."""
+    for r in range(10):
+        if r:
+            k0 = (k0 + _W0) & _MASK32
+            k1 = (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def dropout_keep_mask(seed: torch.Tensor, batch: int, num_heads: int,
+                      tq: int, tk: int, rate: float) -> torch.Tensor:
+    """The kernels' dropout mask, [B, H, Tq, Tk] bool (True = kept): Philox
+    keyed by the seed, counter (k // 4, q, h, b), word k % 4."""
+    dev = seed.device
+    s = seed.reshape(()).to(torch.int64)
+    key0, key1 = s & _MASK32, (s >> 32) & _MASK32
+    ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)
+    c0 = ar((tk + 3) // 4)[None, None, None, :]
+    c1 = ar(tq)[None, None, :, None]
+    c2 = ar(num_heads)[None, :, None, None]
+    c3 = ar(batch)[:, None, None, None]
+    shape = (batch, num_heads, tq, c0.shape[-1])
+    words = philox4x32_10(c0.expand(shape), c1.expand(shape),
+                          c2.expand(shape), c3.expand(shape), key0, key1)
+    bits = torch.stack(words, dim=-1).reshape(batch, num_heads, tq, -1)
+    return bits[..., :tk] >= dropout_threshold(rate)
+
+
+def _scores(q, k, bias, num_heads, causal, scale, use_bias):
+    """(q_scaled_rounded . k^T + bias / causal mask) [B,H,Tq,Tk] fp32."""
+    tq, tk = q.shape[1], k.shape[1]
     qh = (_split_heads_f32(q, num_heads) * scale).to(q.dtype).float()
-    kh = _split_heads_f32(k, num_heads)
-    vh = _split_heads_f32(v, num_heads)
-    s = torch.matmul(qh, kh.transpose(-1, -2))          # [B,H,Tq,Tk] fp32
+    s = torch.matmul(qh, _split_heads_f32(k, num_heads).transpose(-1, -2))
     if use_bias:
         s = s + bias.float()[:, None, None, :]
     if causal:
         above = torch.ones(tq, tk, dtype=torch.bool, device=q.device).triu(1)
         s = s.masked_fill(above, NEG_INF)
+    return s
+
+
+def mha_forward_plain(q, k, v, bias, num_heads: int, causal: bool,
+                      scale: float, use_bias: bool, rate: float = 0.0,
+                      seed=None):
+    """Plain PyTorch version of the kernel: (o [B,Tq,H*D], lse [B,Tq,H])."""
+    b, tq, _ = q.shape
+    s = _scores(q, k, bias, num_heads, causal, scale, use_bias)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
     lse = (m + torch.log(l))[..., 0].transpose(1, 2).contiguous()
-    o = torch.matmul(p.to(v.dtype).float(), vh) * \
-        (1.0 / torch.clamp(l, min=1e-30))
-    return o.transpose(1, 2).reshape(b, tq, c).to(q.dtype), lse
+    keep = 1.0 - rate
+    if rate > 0.0:
+        p = torch.where(dropout_keep_mask(seed, b, num_heads, tq, k.shape[1],
+                                          rate), p, torch.zeros_like(p))
+    o = torch.matmul(p.to(v.dtype).float(), _split_heads_f32(v, num_heads)) \
+        * (1.0 / torch.clamp(l * keep, min=1e-30))
+    return _combine_heads(o, q.dtype), lse
 
 
-def _check(q, k, v, bias, num_heads, causal, use_bias):
+def mha_backward_plain(q, k, v, bias, seed, o, lse, do, num_heads: int,
+                       causal: bool, scale: float, use_bias: bool,
+                       rate: float = 0.0):
+    """Plain PyTorch version of the backward kernel: (dq, dk, dv) in the
+    input type, the TPU kernel's math and rounding points."""
+    dt = q.dtype
+    b, tq, _ = q.shape
+    inv_keep = 1.0 / (1.0 - rate)
+    doh = _split_heads_f32(do.to(dt), num_heads)
+    delta = (doh * _split_heads_f32(o, num_heads)).sum(-1, keepdim=True)
+    s = _scores(q, k, bias, num_heads, causal, scale, use_bias)
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    g, dw = p, torch.matmul(doh, _split_heads_f32(v, num_heads)
+                            .transpose(-1, -2))
+    if rate > 0.0:
+        keep = dropout_keep_mask(seed, b, num_heads, tq, k.shape[1], rate)
+        g = torch.where(keep, p, torch.zeros_like(p))
+        dw = torch.where(keep, dw, torch.zeros_like(dw)) * inv_keep
+    dv = torch.matmul(g.to(dt).float().transpose(-1, -2),
+                      (doh * inv_keep).to(dt).float())
+    dss = (p * (dw - delta) * scale).to(dt).float()
+    dq = torch.matmul(dss, _split_heads_f32(k, num_heads))
+    dk = torch.matmul(dss.transpose(-1, -2), _split_heads_f32(q, num_heads))
+    return (_combine_heads(dq, dt), _combine_heads(dk, dt),
+            _combine_heads(dv, dt))
+
+
+def _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed):
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError("q must be [B,Tq,C] and k, v [B,Tk,C]; got %s %s %s"
                          % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
@@ -70,54 +171,64 @@ def _check(q, k, v, bias, num_heads, causal, use_bias):
         raise ValueError("causal attention needs Tq == Tk")
     if use_bias and (bias is None or tuple(bias.shape) != (b, k.shape[1])):
         raise ValueError("bias must be [B, Tk] when use_bias")
+    if not 0.0 <= rate < 1.0:
+        raise ValueError("dropout rate must be in [0, 1), got %r" % rate)
+    if rate > 0.0 and (seed is None or seed.numel() != 1 or
+                       seed.dtype != torch.int64 or seed.device != q.device):
+        raise ValueError("dropout needs the seed as one int64 on q's device")
 
 
-def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
-                use_bias: bool, rate: float = 0.0):
-    """Attention forward over packed heads: (o [B,Tq,H*D], lse [B,Tq,H]).
-
-    q [B,Tq,H*D]; k, v [B,Tk,H*D], each with a contiguous last dim (row
-    strides are free, so split views of a fused projection pass as they
-    are).  bias [B,Tk] additive (used only with ``use_bias``).  ``causal``
-    masks keys after the query (Tq == Tk).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise.
-    """
-    if rate != 0.0:
-        raise NotImplementedError(
-            "attention dropout (rate > 0) comes with the training slice")
-    _check(q, k, v, bias, num_heads, causal, use_bias)
-    if q.device.type == "cpu":
-        return mha_forward_plain(q, k, v, bias, num_heads, causal, scale,
-                                 use_bias)
+def _check_cuda(q, k, v, bias, num_heads, use_bias, *others):
     if q.device.type != "cuda":
-        raise ValueError("mha_forward runs on CPU or CUDA tensors, not %s"
-                         % q.device)
-    b, tq, c = q.shape
-    tk = k.shape[1]
-    d = c // num_heads
+        raise ValueError("the attention kernels run on CPU or CUDA tensors, "
+                         "not %s" % q.device)
+    d = q.shape[2] // num_heads
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("the kernel takes float32 or bfloat16 q/k/v of one "
                          "type, got %s %s %s" % (q.dtype, k.dtype, v.dtype))
     if d not in _HEAD_DIMS:
         raise ValueError("the kernel takes head dim 64 or 96, got %d" % d)
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError("q, k, v must lie on one device")
-    if q.stride(2) != 1 or k.stride(2) != 1 or v.stride(2) != 1:
-        raise ValueError("q, k, v need a contiguous last dim")
-    if use_bias:
-        if bias.dtype != torch.float32 or not bias.is_contiguous() or \
-                bias.device != q.device:
-            raise ValueError("bias must be a contiguous float32 tensor on "
-                             "q's device")
-    lib = _library()
+    for t in (k, v) + others:
+        if t.device != q.device:
+            raise ValueError("every tensor must lie on q's device")
+    for t in (q, k, v) + others:
+        if t.stride(2) != 1:
+            raise ValueError("q, k, v, o and do need a contiguous last dim")
+    if use_bias and (bias.dtype != torch.float32 or
+                     not bias.is_contiguous() or bias.device != q.device):
+        raise ValueError("bias must be a contiguous float32 tensor on q's "
+                         "device")
+
+
+def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
+                use_bias: bool, rate: float = 0.0, seed=None):
+    """Attention forward over packed heads: (o [B,Tq,H*D], lse [B,Tq,H]).
+
+    q [B,Tq,H*D]; k, v [B,Tk,H*D], each with a contiguous last dim (row
+    strides are free, so split views of a fused projection pass as they
+    are).  bias [B,Tk] additive (used only with ``use_bias``).  ``causal``
+    masks keys after the query (Tq == Tk).  ``rate`` > 0 drops attention
+    weights under the mask of ``seed`` (one int64 on q's device).  CPU
+    tensors take the plain version; CUDA tensors launch the kernel or raise.
+    """
+    _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
+    if q.device.type == "cpu":
+        return mha_forward_plain(q, k, v, bias, num_heads, causal, scale,
+                                 use_bias, rate, seed)
+    _check_cuda(q, k, v, bias, num_heads, use_bias)
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    lib = _library("mha_fwd")
     o = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, tq, num_heads), dtype=torch.float32, device=q.device)
     err = lib.mha_fwd(
-        _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        bias.data_ptr() if use_bias else None, o.data_ptr(), lse.data_ptr(),
+        _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), bias.data_ptr() if use_bias else None,
+        seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
         b, tq, tk, num_heads, q.stride(0), q.stride(1), k.stride(0),
         k.stride(1), v.stride(0), v.stride(1), float(scale), int(causal),
-        int(use_bias), torch.cuda.current_stream(q.device).cuda_stream)
+        int(use_bias), int(rate > 0.0), dropout_threshold(rate),
+        float(1.0 - rate), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("mha_fwd launch failed: %s"
                            % lib.mha_fwd_error_string(err).decode())
@@ -125,18 +236,106 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
     return o, lse
 
 
+def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
+                 causal: bool, scale: float, use_bias: bool,
+                 rate: float = 0.0):
+    """Gradients (dq, dk, dv) of ``mha_forward``'s o, in the input type.
+
+    Takes the forward's inputs and its (o, lse), and ``do`` [B,Tq,H*D].  The
+    bias gets no gradient.  CPU tensors take the plain version; CUDA tensors
+    launch the two kernels of ``csrc/mha_bwd.cu`` (counted as one call) or
+    raise."""
+    _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
+    if q.device.type == "cpu":
+        return mha_backward_plain(q, k, v, bias, seed, o, lse, do, num_heads,
+                                  causal, scale, use_bias, rate)
+    if do.dtype != q.dtype or do.stride(2) != 1:
+        do = do.to(q.dtype).contiguous()
+    _check_cuda(q, k, v, bias, num_heads, use_bias, o, do)
+    if o.shape != q.shape or do.shape != q.shape or \
+            lse.shape != (q.shape[0], q.shape[1], num_heads) or \
+            lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("o and do must be [B,Tq,C] and lse a contiguous "
+                         "float32 [B,Tq,H]")
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    lib = _library("mha_bwd")
+    dq = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, tq, num_heads), dtype=torch.float32,
+                        device=q.device)
+    err = lib.mha_bwd(
+        _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), bias.data_ptr() if use_bias else None,
+        seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        delta.data_ptr(), b, tq, tk, num_heads, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), o.stride(0),
+        o.stride(1), do.stride(0), do.stride(1), float(scale), int(causal),
+        int(use_bias), int(rate > 0.0), dropout_threshold(rate),
+        float(1.0 / (1.0 - rate)),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("mha_bwd launch failed: %s"
+                           % lib.mha_bwd_error_string(err).decode())
+    mha_backward.launches += 1
+    return dq, dk, dv
+
+
 # Kernel launches since the count was last reset (tests and chip_smoke.py
-# read it to show that a path went through the kernel).
+# read them to show that a path went through the kernels).
 mha_forward.launches = 0
+mha_backward.launches = 0
+
+
+class MhaFunction(torch.autograd.Function):
+    """``mha_forward``'s o, differentiable in q, k and v through
+    ``mha_backward``.  The forward saves q, k, v, bias, seed, o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, num_heads: int, causal: bool,
+                scale: float, use_bias: bool, rate: float):
+        o, lse = mha_forward(q, k, v, bias, num_heads, causal, scale,
+                             use_bias, rate, seed)
+        ctx.save_for_backward(q, k, v, bias, seed, o, lse)
+        ctx.config = (num_heads, causal, scale, use_bias, rate)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, seed, o, lse = ctx.saved_tensors
+        dq, dk, dv = mha_backward(q, k, v, bias, seed, o, lse, do,
+                                  *ctx.config)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def draw_seed(generator, device) -> torch.Tensor:
+    """One int64 dropout seed on ``device`` from ``generator`` (that
+    device's generator, or None for the default one); no host sync."""
+    return torch.randint(0, 2 ** 62, (1,), generator=generator,
+                         device=device, dtype=torch.int64)
+
+
+_ERROR_STRINGS = {"mha_fwd": "mha_fwd_error_string",
+                  "mha_bwd": "mha_bwd_error_string"}
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("mha_fwd")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mha_fwd.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i,
-                            ll, ll, ll, ll, ll, ll, ctypes.c_float, i, i, p]
-    lib.mha_fwd.restype = i
-    lib.mha_fwd_error_string.argtypes = [i]
-    lib.mha_fwd_error_string.restype = ctypes.c_char_p
+def _library(name: str) -> ctypes.CDLL:
+    lib = cuda_build.load(name)
+    p, i, u, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                      ctypes.c_float, ctypes.c_longlong)
+    if name == "mha_fwd":
+        lib.mha_fwd.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i,
+                                ll, ll, ll, ll, ll, ll, f, i, i, i, u, f, p]
+        lib.mha_fwd.restype = i
+    else:
+        lib.mha_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, p,
+                                i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll,
+                                ll, ll, f, i, i, i, u, f, p]
+        lib.mha_bwd.restype = i
+    err_fn = getattr(lib, _ERROR_STRINGS[name])
+    err_fn.argtypes = [i]
+    err_fn.restype = ctypes.c_char_p
     return lib

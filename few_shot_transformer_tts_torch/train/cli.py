@@ -1,0 +1,64 @@
+"""Training CLI of the port:
+
+    python -m few_shot_transformer_tts_torch.train --model-dir DIR \
+        --log-dir DIR --data-dir DIR [--hparams k=v,...] [--device cuda]
+
+The flags of the JAX package's root ``train.py`` (reference train.py:251-299)
+plus ``--device`` (default cuda; a missing card raises rather than falling
+back), without ``--multihost``, ``--mirror_interval`` and ``--profile_*``.
+The data dir holds ``mels.zip``, ``metadata.train.txt``,
+``metadata.eval.txt``, ``lang_id.json`` and ``spk_id.json``.  Checkpoints
+are ``model.ckpt-<step>`` files in the reference torch format; a run resumes
+from the latest one in ``--model-dir``.
+"""
+
+import argparse
+
+
+def build_parser():
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--model-dir', required=True,
+                        help="Directory to save checkpoints and resume")
+    parser.add_argument('--log-dir', required=True,
+                        help="Directory to save logs and metrics")
+    parser.add_argument('--data-dir', required=True,
+                        help="Directory with data and metadata")
+    parser.add_argument('--zipfilepath', type=str, default=None)
+    parser.add_argument('--train_meta', type=str, default=None)
+    parser.add_argument('--eval_meta', type=str, default=None)
+    parser.add_argument('--adapt_languages', type=str, default=None)
+    parser.add_argument('--adapt_speakers', type=str, default=None)
+    parser.add_argument('--training_languages', type=str, default=None)
+    parser.add_argument('--training_speakers', type=str, default=None)
+    parser.add_argument('--eval_languages', type=str, default=None)
+    parser.add_argument('--eval_speakers', type=str, default=None)
+    parser.add_argument('--warmup_languages', type=str, default=None)
+    parser.add_argument('--warmup_speakers', type=str, default=None)
+    parser.add_argument('--exclude_speakers', type=str, default=None)
+    parser.add_argument('--adapt_samples', type=str, default=None)
+    parser.add_argument('--downsample_languages', type=str, default=None)
+    parser.add_argument('--eval_steps', type=str, default=None)
+    parser.add_argument('--checkpoint_interval', type=int, default=10000)
+    parser.add_argument('--summary_interval', type=int, default=100)
+    parser.add_argument('--log_interval', type=int, default=50,
+                        help='steps between batched device->host loss '
+                             'fetches; every step still gets a log line, '
+                             'emitted in bursts')
+    parser.add_argument('--restore_from', default=None)
+    parser.add_argument('--hparams', default='', help='k=v,... overrides')
+    parser.add_argument('--max_steps', type=int, default=None)
+    parser.add_argument('--seed', type=int, default=0,
+                        help='weights and dropout draws')
+    parser.add_argument('--device', default='cuda',
+                        help='torch device (default cuda; "cpu" to run there)')
+    return parser
+
+
+def main(argv=None):
+    from few_shot_transformer_tts_torch.config import default_config
+    from few_shot_transformer_tts_torch.train.loop import train
+    args, unparsed = build_parser().parse_known_args(argv)
+    if unparsed:
+        print('unparsed:', unparsed)
+    hp = default_config().parse(args.hparams)
+    return train(args, hp)

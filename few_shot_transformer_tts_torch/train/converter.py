@@ -13,7 +13,11 @@ arrays, no JAX types) and returns the port's state dict.
   pe_scale ()                      -> pe_scale [1]
 
 ``load_reference_checkpoint`` loads a reference-format ``model.ckpt-<step>``
-(``torch.save({model, optim, sched, step})``) into a port model.
+(``torch.save({model, optim, sched, step})``) into a port model, and its
+optimizer and LR scheduler when given.  ``optimizer_state_from_jax`` turns
+the JAX package's Adam moments into a ``torch.optim.Adam`` state dict, in
+``model.parameters()`` order (the order the JAX package's
+``_param_names_in_order`` assumes when it imports a torch optimizer).
 """
 
 from __future__ import annotations
@@ -76,8 +80,28 @@ def _strip_module(name: str) -> str:
     return name[len("module."):] if name.startswith("module.") else name
 
 
-def load_reference_checkpoint(path: str, model: nn.Module) -> Optional[int]:
-    """Load a reference ``model.ckpt-<step>`` file into ``model`` (strict) and
+def optimizer_state_from_jax(mu: dict, nu: dict, count: int,
+                             model: nn.Module, optimizer) -> dict:
+    """The JAX package's Adam moments (``mu``/``nu`` trees of numpy arrays in
+    the params layout, and the step ``count``) as a state dict for
+    ``optimizer`` (a ``torch.optim.Adam`` over ``model.parameters()``),
+    whose param groups it keeps."""
+    mu_sd = state_dict_from_jax_variables({"params": mu})
+    nu_sd = state_dict_from_jax_variables({"params": nu})
+    names = [name for name, _ in model.named_parameters()]
+    if sorted(names) != sorted(mu_sd) or sorted(names) != sorted(nu_sd):
+        raise ValueError("the moments do not cover the model's parameters")
+    state = {i: {"step": torch.tensor(float(count)),
+                 "exp_avg": mu_sd[name], "exp_avg_sq": nu_sd[name]}
+             for i, name in enumerate(names)}
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def load_reference_checkpoint(path: str, model: nn.Module, optimizer=None,
+                              scheduler=None) -> Optional[int]:
+    """Load a reference ``model.ckpt-<step>`` file into ``model`` (strict),
+    ``optimizer`` and ``scheduler`` (when given and present in the file) and
     return its step (``step``, else ``sched['last_epoch']``, else None).
 
     ``module.`` prefixes are stripped, and a one-element ``pe_scale`` takes
@@ -92,6 +116,10 @@ def load_reference_checkpoint(path: str, model: nn.Module) -> Optional[int]:
             tensor = torch.as_tensor(tensor).reshape(own[name].shape)
         sd[name] = tensor
     model.load_state_dict(sd, strict=True)
+    if optimizer is not None and state.get("optim"):
+        optimizer.load_state_dict(state["optim"])
+    if scheduler is not None and isinstance(state.get("sched"), dict):
+        scheduler.load_state_dict(state["sched"])
     step = state.get("step", None)
     if step is None and isinstance(state.get("sched"), dict):
         step = state["sched"].get("last_epoch")  # reference checkpoint.py:53-57

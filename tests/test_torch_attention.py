@@ -93,8 +93,11 @@ def test_mha_forward_takes_strided_views_of_a_fused_projection():
 
 def test_mha_forward_rejects_what_the_kernel_does_not_take():
     q, k, v, bias = (torch.from_numpy(a) for a in _qkv(1, 8, 8, seed=1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         mha_forward(q, k, v, bias, H, False, 1.0, True, rate=0.1)
+    with pytest.raises(ValueError, match="rate"):
+        mha_forward(q, k, v, bias, H, False, 1.0, True, rate=1.0,
+                    seed=torch.zeros(1, dtype=torch.int64))
     with pytest.raises(ValueError, match="Tq == Tk"):
         mha_forward(q, k[:, :4], v[:, :4], None, H, True, 1.0, False)
     with pytest.raises(ValueError, match="bias"):

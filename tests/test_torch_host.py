@@ -109,10 +109,15 @@ def test_feeder_eval_batches_match_jax(script, options):
 
 
 def test_feeder_eval_is_synthesis_only(script, tmp_path):
+    """Without a zip it batches texts only; a zip path must exist (reading
+    mels from a zip is held to JAX in test_torch_feeder.py)."""
     hp = default_config()
-    with pytest.raises(NotImplementedError, match="zip"):
-        FeederEval("mels.zip", script, hp, spk_to_id=SPEAKERS,
-                   lang_to_id=LANGS)
+    batch = FeederEval(None, script, hp, spk_to_id=SPEAKERS,
+                       lang_to_id=LANGS).fetch_data()[0]
+    assert "mel_targets" not in batch and "target_lengths" not in batch
+    with pytest.raises(FileNotFoundError):
+        FeederEval(str(tmp_path / "mels.zip"), script, hp,
+                   spk_to_id=SPEAKERS, lang_to_id=LANGS)
     empty = tmp_path / "empty.txt"
     empty.write_text("")
     assert FeederEval(None, str(empty), hp, spk_to_id=SPEAKERS,

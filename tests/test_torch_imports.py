@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of it, and not chip_smoke.py,
-imports JAX, flax, optax or the JAX package; and building its CUDA kernel
-fails loudly where there is no nvcc."""
+imports JAX, flax, optax or the JAX package; and building any of its CUDA
+kernels fails loudly where there is no nvcc."""
 
 import ast
 import subprocess
@@ -58,9 +58,28 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(cuda_build, "_loaded", {})
+    sources = cuda_build.sources()
+    assert sources == sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert {"mha_fwd", "mha_bwd", "layernorm_bwd"} <= set(sources)
+    for name in sources:
+        with pytest.raises(RuntimeError, match="nvcc was not found"):
+            cuda_build.load(name)
+        # the library name follows the source hash, so an edited source
+        # rebuilds
+        lib = cuda_build.library_path(name).name
+        assert lib.startswith("lib%s-" % name) and lib.endswith(".so")
     with pytest.raises(RuntimeError, match="nvcc was not found"):
-        cuda_build.load("mha_fwd")
+        cuda_build.build_all()
     assert not (tmp_path / "build").exists()
-    # the library name follows the source hash, so an edited source rebuilds
-    name = cuda_build.library_path("mha_fwd").name
-    assert name.startswith("libmha_fwd-") and name.endswith(".so")
+
+
+def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    from few_shot_transformer_tts_torch.ops import cuda_build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    before = cuda_build.library_path("k")
+    (csrc / "h.cuh").write_text("// two\n")
+    assert cuda_build.library_path("k") != before
