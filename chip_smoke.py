@@ -26,7 +26,18 @@ uncaught exception and a non-zero exit):
      0.1 (dq, dk, dv), layer_norm_backward at 3072x512 and 7168x768.  Each
      row: error against tolerance, kernel / plain / library ms, bound ms and
      what binds it, launches per train step.
-  5. main_path: the flagship default_config() (6+6 layers, 512/768, 8 heads,
+  5. decode_kernel_check: the fused decode step (csrc/decoder_step.cu)
+     against its plain PyTorch version on the card at the flagship synthesis
+     shape (6 layers, C=768, 8 heads, B=8, bf16, the flagship model's
+     stacked weights, cache of 512, memory 192 padded to 256) at steps 0, 1,
+     255, 256 and 511, plus its first layer alone, an fp32 case and a
+     small-width case (C=128, 4 heads, D=32).  Two launches on the same
+     inputs must agree bit for bit; errors (max, L2, and per attention row)
+     against the stated tolerances (TOL_DECODE); kernel and
+     plain ms per frame beside the bytes bound, and the eager
+     ``decode_step``'s device time per frame for context (no single PyTorch
+     call computes a frame, so no library time).
+  6. main_path: the flagship default_config() (6+6 layers, 512/768, 8 heads,
      80 mels) with weights from --seed through numpy, stop bias -1e4 so every
      row decodes to the cap; synthesize_batch at B=8, T_in=192, 512 frames,
      deterministic.  The kernel must launch exactly 6 times (one per encoder
@@ -36,11 +47,17 @@ uncaught exception and a non-zero exit):
      cross-attention) must match the plain path too.  Then the same
      call once with decoder dropout on, and a torch.profiler window of 64
      frames (device busy time against wall time, launches per frame).
-  6. cli: a reference-format checkpoint of the random weights, a 2-line
+  7. main_path_fused: the same call with ``use_pallas_decode=True``: one
+     decoder_frame_step launch per frame (512) and 6 attention launches; the
+     same call again gives the same mels and lengths bit for bit; the first
+     32 frames within TOL_FRAMES of the eager path; frames/s, RTF, and a
+     64-frame profiler window.
+  8. cli: a reference-format checkpoint of the random weights, a 2-line
      script and the id maps through ``python -m
-     few_shot_transformer_tts_torch.synthesize`` (in-process, 64 frames);
-     the .npy and .wav files must exist.
-  7. train: the flagship config, bf16, weights from --seed, one synthetic
+     few_shot_transformer_tts_torch.synthesize`` (in-process, 64 frames),
+     once as it is and once with ``--hparams use_pallas_decode=True``
+     (the fused step must launch); the .npy and .wav files must exist.
+  9. train: the flagship config, bf16, weights from --seed, one synthetic
      batch at B=16, T_in=192, T_out=448.  One step at dropout 0 through the
      kernels against the same step through the plain attention and
      LayerNorm paths (loss and every gradient leaf, bf16 and fp32); then 10
@@ -48,7 +65,7 @@ uncaught exception and a non-zero exit):
      mha_backward and 32 layer_norm_backward calls in every step, finite
      and falling losses; sec/step, audio s/s, MFU, peak memory, and a
      torch.profiler window of one step.
-  8. train_cli: ``python -m few_shot_transformer_tts_torch.train`` in-process
+  10. train_cli: ``python -m few_shot_transformer_tts_torch.train`` in-process
      on a tiny synthetic corpus the script writes (small widths, head dims
      64/96): 3 steps with a checkpoint, then a resume for 1 more step.
 
@@ -73,9 +90,15 @@ from few_shot_transformer_tts_torch.infer import synthesize_batch
 from few_shot_transformer_tts_torch.infer.synthesize import (
     matmul_weights_in, prepare_decode_inputs)
 from few_shot_transformer_tts_torch.models import ByteToMel
+from few_shot_transformer_tts_torch.models.common import (length_mask,
+                                                          padding_bias)
 from few_shot_transformer_tts_torch.models.tacotron import (compute_loss,
                                                             init_weights_)
 from few_shot_transformer_tts_torch.ops import cuda_build
+from few_shot_transformer_tts_torch.ops import decode as decode_ops
+from few_shot_transformer_tts_torch.ops.decode import (
+    STAGES, decoder_frame_step, decoder_frame_step_plain, project_memory,
+    stack_decoder_params)
 from few_shot_transformer_tts_torch.ops.layernorm import (
     layer_norm_backward, layer_norm_backward_plain)
 from few_shot_transformer_tts_torch.ops.mha import (
@@ -121,6 +144,31 @@ TOL_LN = {torch.bfloat16: {"dx": 2e-2, "dgamma": 1e-3, "dbeta": 1e-3},
 # fp32: summation order only.
 TOL_STEP = {torch.bfloat16: {"loss": 1e-2, "grad": 5e-2},
             torch.float32: {"loss": 1e-5, "grad": 1e-3}}
+# Fused decode step, kernel vs plain version on the card, per case.  Both
+# round at the same points, and the kernel is deterministic (two launches
+# must agree bit for bit), but its fp32 sums run in another order than
+# torch.matmul's: a sum that lands on the other side of a bf16 rounding
+# boundary moves that input by one ulp (2^-8 of it), and later layers carry
+# it on.  x_out, k_new, v_new: "rel" is the max abs error over the largest
+# magnitude, "l2" the error's L2 norm over the plain result's.  align, a
+# row of weights over the memory per (layer, row, head): "l1" is the
+# largest sum over the row of |error| (a row sums to 1), "row" the largest
+# error over its row's largest weight.  Padded memory columns must get
+# exactly 0 and every row must sum to 1 within TOL_ROW_SUM in both.
+# The one-layer and small (two-layer) bf16 cases hold the rounding points:
+# they read l2 <= 8e-7, l1 and row <= 1e-5 on the H100, and each of nine
+# kernel mutants (a rounding point dropped, LN eps 1e-5, padded columns
+# given weight) moved the one-layer case to l2 >= 1.7e-3, l1 >= 8e-4 and
+# row >= 1.3e-3.  The six-layer case bounds the drift that layers
+# carry on (it read rel <= 7.1e-3, l2 <= 2.8e-3, l1 <= 0.0124, row <=
+# 0.034), with about 2.5x room.  fp32 is summation order only.
+TOL_DECODE = {
+    "flagship_bf16": {"rel": 2e-2, "l2": 1e-2, "l1": 3e-2, "row": 8e-2},
+    "one_layer_bf16": {"rel": 1e-2, "l2": 1e-4, "l1": 1e-4, "row": 1e-4},
+    "small_c128_bf16": {"rel": 1e-2, "l2": 1e-4, "l1": 1e-4, "row": 1e-4},
+    "flagship_fp32": {"rel": 1e-5, "l2": 2e-6, "l1": 1e-5, "row": 1e-5}}
+TOL_ROW_SUM = 2e-6
+DECODE_WEIGHTS = ("w_qkv", "w_out", "w_q", "w_xout", "w_ffn1", "w_ffn2")
 
 
 # about 0.1 s at the H100's clocks: longer than the host takes to queue any
@@ -465,7 +513,215 @@ def train_kernel_phase(seed):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path
+# phase 5: the fused decode step against its plain version
+# ---------------------------------------------------------------------------
+
+def decode_bound(w, x, cache_k, mem_k, heads, step):
+    """Least time for one frame: the stacked weights, the memory K/V and
+    bias, x and the valid cache prefix (t < step) read once, x_out, align
+    and k/v_new written once; the products' operations at the weights'
+    type's peak rate."""
+    n_layers, b, _, c = cache_k.shape
+    t_mem = mem_k.shape[2]
+    elt = cache_k.element_size()
+    params = sum(w[n].numel() for n in DECODE_WEIGHTS)
+    nbytes = params * elt + w["lns"].numel() * 4 + \
+        2 * mem_k.numel() * elt + b * t_mem * 4 + \
+        2 * n_layers * b * step * c * elt + \
+        2 * x.numel() * 4 + n_layers * b * t_mem * heads * 4 + \
+        2 * n_layers * b * c * elt
+    flops = 2.0 * b * params + 4.0 * n_layers * b * c * (step + 1 + t_mem)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS_PER_S[cache_k.dtype] * 1e3
+    return max(t_bytes, t_flops), ("bytes" if t_bytes >= t_flops
+                                   else "operations"), nbytes, flops
+
+
+def decode_inputs(rng, w, b, t_cap, t_in, dtype):
+    """x, caches, memory K/V (projected from a random encoder output by the
+    stacked w_kv, padded to 256) and the padding bias of random lengths."""
+    n_layers, c = w["w_qkv"].shape[0], w["w_qkv"].shape[1]
+    t = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32)).cuda()
+    enc = t(b, t_in, w["w_kv"].shape[1])
+    mem_k, mem_v = project_memory(enc, w["w_kv"], dtype)
+    lengths = rng.randint(t_in // 2, t_in + 1, b)
+    lengths[0] = t_in
+    bias = torch.from_numpy(np.where(
+        np.arange(mem_k.shape[2])[None, :] < lengths[:, None], 0.0,
+        -1e20).astype(np.float32)).cuda()
+    return (t(b, c), t(n_layers, b, t_cap, c).to(dtype),
+            t(n_layers, b, t_cap, c).to(dtype), mem_k, mem_v, bias)
+
+
+def stage_breakdown(w, inputs, heads, step, reps=5):
+    """Microseconds per stage kind, summed over the layers and averaged over
+    ``reps`` frames, from the kernel's timeline (block 0's global-timer
+    stamps at each grid-wide barrier)."""
+    x, ck, cv, mk, mv, bias = inputs
+    n_layers = ck.shape[0]
+    trace = torch.zeros(len(STAGES) * n_layers + 2, dtype=torch.int64,
+                        device="cuda")
+    total = np.zeros(1 + len(STAGES))
+    for _ in range(reps):
+        decoder_frame_step(x, step, w, ck, cv, mk, mv, bias, num_heads=heads,
+                           trace=trace)
+        d = np.diff(trace.cpu().numpy().astype(np.float64)) / 1e3
+        total += np.concatenate([d[:1], d[1:].reshape(n_layers, -1).sum(0)])
+    total /= reps
+    return dict(zip(("stage0",) + STAGES, total.tolist()),
+                total=float(total.sum()))
+
+
+def l2_err(got, want):
+    return ((got.float() - want.float()).norm() /
+            want.float().norm()).item()
+
+
+def align_errors(got, want, bias):
+    """The align readings of TOL_DECODE for [L, B, Tm, H] weights: the
+    largest row L1 distance, the largest error over its row's largest
+    weight, the largest weight either puts on a padded column, and the
+    largest |row sum - 1| of either."""
+    d = (got - want).abs()
+    pad = (bias < -1e19)[None, :, :, None].expand_as(got)
+    both = torch.stack([got, want])
+    return {"align_l1": d.sum(2).max().item(),
+            "align_row": (d.amax(2) / want.amax(2)).max().item(),
+            "align_max_abs_err": d.max().item(),
+            "align_pad_max": both[:, pad].abs().max().item()
+            if bool(pad.any()) else 0.0,
+            "align_row_sum_err": (both.sum(3) - 1).abs().max().item()}
+
+
+def check_decode(name, w, inputs, heads, step, iters=20):
+    x, ck, cv, mk, mv, bias = inputs
+    args = (x, step, w, ck, cv, mk, mv, bias)
+    got = decoder_frame_step(*args, num_heads=heads)
+    again = decoder_frame_step(*args, num_heads=heads)
+    want = decoder_frame_step_plain(*args, num_heads=heads)
+    torch.cuda.synchronize()
+    tol = TOL_DECODE[name]
+    outs = ("x_out", "k_new", "v_new")
+    pairs = list(zip(outs, (got[0], got[2], got[3]),
+                     (want[0], want[2], want[3])))
+    errs = {"rel_err_" + n: rel_err(g, wt) for n, g, wt in pairs}
+    l2 = {"l2_err_" + n: l2_err(g, wt) for n, g, wt in pairs}
+    al = align_errors(got[1], want[1], bias)
+    bound_ms, bound_by, nbytes, flops = decode_bound(w, x, ck, mk, heads,
+                                                     step)
+    row = {"phase": "decode_kernel_check", "case": name,
+           "dtype": str(ck.dtype), "L": ck.shape[0], "B": x.shape[0],
+           "C": x.shape[1], "H": heads, "Tcap": ck.shape[2],
+           "Tm": mk.shape[2], "step": step, **errs, **l2, **al,
+           "max_abs_err": abs_err(got[0], want[0]),
+           "max_abs_x_out": want[0].abs().max().item(),
+           "repeat_bit_identical": all(torch.equal(a, b)
+                                       for a, b in zip(got, again)),
+           "tol": tol, "tol_row_sum": TOL_ROW_SUM,
+           "ms": cuda_ms(lambda: decoder_frame_step(*args, num_heads=heads),
+                         iters),
+           "plain_ms": cuda_ms(lambda: decoder_frame_step_plain(
+               *args, num_heads=heads), 2),
+           "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bytes": nbytes, "flops": flops,
+           "stage_us": stage_breakdown(w, inputs, heads, step)}
+    row["ok"] = max(errs.values()) <= tol["rel"] and \
+        max(l2.values()) <= tol["l2"] and \
+        al["align_l1"] <= tol["l1"] and al["align_row"] <= tol["row"] and \
+        al["align_pad_max"] == 0.0 and \
+        al["align_row_sum_err"] <= TOL_ROW_SUM and \
+        row["repeat_bit_identical"] and \
+        all(bool(torch.isfinite(g).all()) for g in got)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("decoder_frame_step disagrees with its plain "
+                             "version at %s: %s" % (name, row))
+    return row
+
+
+def wrapper_host_us(w, inputs, heads, step, n=50):
+    """Host microseconds per ``decoder_frame_step`` call, and of its
+    argument checks alone, while a sleep kernel holds the card (so no call
+    waits on the device)."""
+    x, ck, cv, mk, mv, bias = inputs
+    args = (x, step, w, ck, cv, mk, mv, bias)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    tic = time.perf_counter()
+    for _ in range(n):
+        decoder_frame_step(*args, num_heads=heads)
+    call = (time.perf_counter() - tic) / n * 1e6
+    tic = time.perf_counter()
+    for _ in range(n):
+        decode_ops._check(*args, heads)
+        decode_ops._check_cuda(x, w, ck, cv, mk, mv, bias, heads)
+    checks = (time.perf_counter() - tic) / n * 1e6
+    torch.cuda.synchronize()
+    return {"call_us": call, "checks_us": checks}
+
+
+@torch.no_grad()
+def eager_step_ms(model, hp, batch, step=255, cap=512):
+    """Device time of one eager ``decode_step`` frame (the per-layer path
+    the fused step replaces), for context."""
+    inputs, lengths, spk, lvec = (torch.from_numpy(a).cuda() for a in
+                                  prepare_decode_inputs(batch, hp))
+    with matmul_weights_in(model, model.dtype):
+        _, memory_kv = model.encode(inputs, lengths, spk, lvec)
+        bias = padding_bias(length_mask(lengths, inputs.shape[1]))
+        cache = model.init_decode_cache(inputs.shape[0], cap)
+        prev = torch.zeros(inputs.shape[0], hp.num_mels, device="cuda")
+        # two frames: ~1000 launches stay within the launch queue, so the
+        # sleep kernel still covers the host's queuing
+        return cuda_ms(lambda: model.decode_step(prev, step, cache,
+                                                 memory_kv, bias), 2)
+
+
+def decode_kernel_phase(model, hp, batch, seed):
+    rng = np.random.RandomState(seed + 20)
+    heads = hp.n_attention_head
+    rows = {}
+    w = stack_decoder_params(model.decoder.decoder, torch.bfloat16)
+    inputs = decode_inputs(rng, w, 8, 512, 192, torch.bfloat16)
+    for step in (0, 1, 255, 256, 511):
+        rows[step] = check_decode("flagship_bf16", w, inputs, heads, step)
+    rows["host"] = wrapper_host_us(w, inputs, heads, 256)
+    emit({"phase": "decode_kernel_check", "case": "wrapper_host_time",
+          "step": 256, **rows["host"]})
+    # the first layer alone at the same width: one layer of drift
+    w1 = {k: v[:1].contiguous() for k, v in w.items()}
+    check_decode("one_layer_bf16", w1,
+                 tuple(t[:1].contiguous() if t.dim() == 4 else t
+                       for t in inputs), heads, 300, iters=5)
+    w32 = stack_decoder_params(model.decoder.decoder, torch.float32)
+    check_decode("flagship_fp32", w32,
+                 decode_inputs(rng, w32, 8, 512, 192, torch.float32), heads,
+                 300, iters=5)
+    # small widths: C=128, 4 heads (D=32), 2 layers, 3 rows
+    small = {"lns": torch.from_numpy(np.stack(
+        [1 + 0.1 * rng.randn(2, 128) if i % 2 == 0 else
+         0.1 * rng.randn(2, 128) for i in range(6)], 1).astype(
+            np.float32)).cuda()}
+    for name, (k, n) in {"w_qkv": (128, 384), "w_out": (128, 128),
+                         "w_q": (128, 128), "w_kv": (128, 256),
+                         "w_xout": (128, 128), "w_ffn1": (128, 512),
+                         "w_ffn2": (512, 128)}.items():
+        small[name] = torch.from_numpy(
+            (rng.randn(2, k, n) / np.sqrt(k)).astype(np.float32)).to(
+                "cuda", torch.bfloat16)
+    check_decode("small_c128_bf16", small,
+                 decode_inputs(rng, small, 3, 256, 77, torch.bfloat16), 4,
+                 100, iters=5)
+    eager = eager_step_ms(model, hp, batch)
+    emit({"phase": "decode_kernel_check", "case": "eager_decode_step",
+          "step": 255, "device_ms_per_frame": eager,
+          "fused_ms_per_frame": rows[255]["ms"]})
+    rows["eager_ms"] = eager
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the main path
 # ---------------------------------------------------------------------------
 
 def flagship_batch(hp, seed, b=8, t_in=192):
@@ -513,42 +769,57 @@ def teacher_forced_check(model, plain, hp, batch, seed, t_out=448):
     return launches, err
 
 
-def main_path_phase(seed):
-    hp = default_config()
-    model = flagship_model(hp, seed, "cuda")
-    plain = ByteToMel(hp.replace(use_pallas_attention=False), device="cuda")
-    plain.load_state_dict(model.state_dict())
-    plain.eval()
-    batch = flagship_batch(hp, seed)
-    frames = 512
+KERNELS = {"mha_forward": mha_forward, "mha_backward": mha_backward,
+           "layer_norm_backward": layer_norm_backward,
+           "decoder_frame_step": decoder_frame_step}
 
-    # warm-up (cuBLAS/cuDNN handles, allocator), not counted
+
+def reset_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def timed_synthesis(model, hp, batch, frames):
+    """One counted synthesize_batch call after a short warm-up: (output,
+    wall seconds, kernel launches of the call)."""
     synthesize_batch(model, batch, hp, deterministic=True,
                      collect_alignments=False, max_frames=8)
     torch.cuda.synchronize()
-
-    mha_forward.launches = mha_backward.launches = 0
-    layer_norm_backward.launches = 0
+    reset_counts()
     tic = time.perf_counter()
     out = synthesize_batch(model, batch, hp, deterministic=True,
                            collect_alignments=False, max_frames=frames)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tic
-    counts = {"mha_forward": mha_forward.launches,
-              "mha_backward": mha_backward.launches,
-              "layer_norm_backward": layer_norm_backward.launches}
-    launches = counts["mha_forward"]
-    if counts != {"mha_forward": hp.n_encoder_layer, "mha_backward": 0,
-                  "layer_norm_backward": 0}:
-        raise AssertionError("main path launched the kernels %s times, "
-                             "expected %d forward calls and no backward"
-                             % (counts, hp.n_encoder_layer))
+    return out, wall, read_counts()
+
+
+def check_mels(out, frames, hp):
     mel = out["mel_aft"]
     if mel.shape != (8, frames, hp.num_mels) or \
             not np.isfinite(mel).all() or \
             not np.isfinite(out["mel_pre"]).all():
         raise AssertionError("bad synthesis output: shape %s, finite %s"
                              % (mel.shape, np.isfinite(mel).all()))
+
+
+def main_path_phase(model, hp, batch, seed):
+    plain = ByteToMel(hp.replace(use_pallas_attention=False), device="cuda")
+    plain.load_state_dict(model.state_dict())
+    plain.eval()
+    frames = 512
+    out, wall, counts = timed_synthesis(model, hp, batch, frames)
+    launches = counts["mha_forward"]
+    if counts != {"mha_forward": hp.n_encoder_layer, "mha_backward": 0,
+                  "layer_norm_backward": 0, "decoder_frame_step": 0}:
+        raise AssertionError("main path launched the kernels %s times, "
+                             "expected %d forward calls and no other"
+                             % (counts, hp.n_encoder_layer))
+    check_mels(out, frames, hp)
     n_frames = int(np.sum(out["generated_lengths"]))
 
     # the same encoder and first frames through the plain attention path
@@ -596,8 +867,50 @@ def main_path_phase(seed):
     emit({"phase": "main_path_dropout", "wall_s": wall_d,
           "frames_per_s": int(np.sum(out_d["generated_lengths"])) / wall_d,
           "kernel_launches": mha_forward.launches - before})
-    profile_phase(model, hp, batch)
-    return model, counts
+    profile_phase(model, hp, batch, "profile")
+    return counts
+
+
+def main_path_fused_phase(model, hp, batch):
+    """synthesize_batch through the fused decode step: one
+    decoder_frame_step launch per frame, its first frames against the eager
+    path, frames/s and a profile window."""
+    hp_fused = hp.replace(use_pallas_decode=True)
+    frames = 512
+    out, wall, counts = timed_synthesis(model, hp_fused, batch, frames)
+    check_mels(out, frames, hp)
+    want = {"mha_forward": hp.n_encoder_layer, "mha_backward": 0,
+            "layer_norm_backward": 0, "decoder_frame_step": frames}
+    # the fused path is deterministic: the same call gives the same bits
+    again = synthesize_batch(model, batch, hp_fused, deterministic=True,
+                             collect_alignments=False, max_frames=frames)
+    repeat = {"mel_pre_max_abs_diff": float(np.abs(
+                  again["mel_pre"] - out["mel_pre"]).max()),
+              "mel_aft_max_abs_diff": float(np.abs(
+                  again["mel_aft"] - out["mel_aft"]).max()),
+              "lengths_equal": again["generated_lengths"] ==
+              out["generated_lengths"]}
+    out_e = synthesize_batch(model, batch, hp, deterministic=True,
+                             collect_alignments=False, max_frames=32)
+    frame_err = float(np.abs(out["mel_pre"][:, :32] -
+                             out_e["mel_pre"]).max())
+    n_frames = int(np.sum(out["generated_lengths"]))
+    row = {"phase": "main_path_fused", "config": "default_config (flagship)",
+           "B": 8, "T_in": 192, "max_frames": frames,
+           "launches_by_kernel": counts, "wall_s": wall, "frames": n_frames,
+           "frames_per_s": n_frames / wall, "rtf": wall / n_frames * 80,
+           "first32_max_abs_err_vs_eager": frame_err,
+           "tol_frames": TOL_FRAMES, "repeat": repeat,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(row)
+    if counts != want or frame_err > TOL_FRAMES or \
+            not repeat["lengths_equal"] or \
+            repeat["mel_pre_max_abs_diff"] != 0.0 or \
+            repeat["mel_aft_max_abs_diff"] != 0.0:
+        raise AssertionError("fused synthesis failed (launches expected %s): "
+                             "%s" % (want, row))
+    profile_phase(model, hp_fused, batch, "profile_fused")
+    return counts
 
 
 def device_kernels(prof):
@@ -622,7 +935,7 @@ def top_events(events, n):
                             key=lambda e: -e.self_device_time_total)[:n]]
 
 
-def profile_phase(model, hp, batch, frames=64):
+def profile_phase(model, hp, batch, phase, frames=64):
     """Where a short synthesis call spends its time: device busy time (sum
     of CUDA kernel times from torch.profiler) against the unprofiled wall
     time of the same call, kernel launches per frame, and the top kernels."""
@@ -643,7 +956,7 @@ def profile_phase(model, hp, batch, frames=64):
     kernels, ranges = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    emit({"phase": "profile", "frames": frames, "B": 8,
+    emit({"phase": phase, "frames": frames, "B": 8,
           "wall_ms_unprofiled": wall_ms,
           "device_busy_ms": busy_ms if kernels else None,
           "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
@@ -654,7 +967,7 @@ def profile_phase(model, hp, batch, frames=64):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the CLI
+# phase 8: the CLI
 # ---------------------------------------------------------------------------
 
 def cli_phase(model, out_dir):
@@ -671,30 +984,41 @@ def cli_phase(model, out_dir):
         json.dump({"en-us": 0, "fr-fr": 1}, f)
     with open(os.path.join(out_dir, "spk_id.json"), "w") as f:
         json.dump({"spk0": 0, "spk1": 1}, f)
-    wav_dir = os.path.join(out_dir, "synth")
-    before = mha_forward.launches
-    tic = time.perf_counter()
-    cli.main(["--checkpoint", ckpt, "--script",
-              os.path.join(out_dir, "script.txt"), "--data-dir", out_dir,
-              "--output-dir", wav_dir, "--deterministic",
-              "--hparams", "max_generation_frames=64"])
-    wall = time.perf_counter() - tic
-    files = sorted(os.listdir(wav_dir))
-    for name in ("spk0_0", "spk1_0"):
-        for ext in (".npy", ".wav"):
-            if name + ext not in files:
-                raise AssertionError("CLI did not write %s%s: %s"
-                                     % (name, ext, files))
-    mel = np.load(os.path.join(wav_dir, "spk0_0.npy"))
-    if mel.shape != (64, 80) or not np.isfinite(mel).all():
-        raise AssertionError("CLI mel has shape %s" % (mel.shape,))
-    emit({"phase": "cli", "wall_s": wall, "files": files,
-          "kernel_launches": mha_forward.launches - before})
+    # the eager frame loop, then the fused decode step
+    for phase, hparams, sub in (
+            ("cli", "max_generation_frames=64", "synth"),
+            ("cli_fused", "max_generation_frames=64,use_pallas_decode=True",
+             "synth_fused")):
+        wav_dir = os.path.join(out_dir, sub)
+        reset_counts()
+        tic = time.perf_counter()
+        cli.main(["--checkpoint", ckpt, "--script",
+                  os.path.join(out_dir, "script.txt"), "--data-dir", out_dir,
+                  "--output-dir", wav_dir, "--deterministic",
+                  "--hparams", hparams])
+        wall = time.perf_counter() - tic
+        counts = read_counts()
+        files = sorted(os.listdir(wav_dir))
+        for name in ("spk0_0", "spk1_0"):
+            for ext in (".npy", ".wav"):
+                if name + ext not in files:
+                    raise AssertionError("CLI did not write %s%s: %s"
+                                         % (name, ext, files))
+        mel = np.load(os.path.join(wav_dir, "spk0_0.npy"))
+        if mel.shape != (64, 80) or not np.isfinite(mel).all():
+            raise AssertionError("CLI mel has shape %s" % (mel.shape,))
+        emit({"phase": phase, "wall_s": wall, "files": files,
+              "kernel_launches": counts["mha_forward"],
+              "launches_by_kernel": counts})
+        fused_launches = counts["decoder_frame_step"]
+        if (phase == "cli_fused") != (fused_launches > 0):
+            raise AssertionError("%s launched decoder_frame_step %d times"
+                                 % (phase, fused_launches))
     os.remove(ckpt)
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the train step at flagship width
+# phase 9: the train step at flagship width
 # ---------------------------------------------------------------------------
 
 def train_step_matmul_flops(hp, b, t_in, t_out) -> float:
@@ -830,8 +1154,7 @@ def train_phase(seed, steps=10):
     frames = int(host["target_lengths"].sum())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mha_forward.launches = mha_backward.launches = 0
-    layer_norm_backward.launches = 0
+    reset_counts()
     losses, times, per_step = [], [], []
     for step in range(steps):
         before = (mha_forward.launches, mha_backward.launches,
@@ -845,9 +1168,7 @@ def train_phase(seed, steps=10):
         per_step.append((mha_forward.launches - before[0],
                          mha_backward.launches - before[1],
                          layer_norm_backward.launches - before[2]))
-    counts = {"mha_forward": mha_forward.launches,
-              "mha_backward": mha_backward.launches,
-              "layer_norm_backward": layer_norm_backward.launches}
+    counts = read_counts()
     losses = torch.stack(losses).float().cpu().numpy().tolist()
     sec = float(np.median(times[2:]))
     flops = train_step_matmul_flops(hp, 16, 192, 448)
@@ -862,7 +1183,8 @@ def train_phase(seed, steps=10):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "kernel_calls": counts, "kernel_calls_per_step": per_step}
     row["ok"] = all(np.isfinite(losses)) and losses[-1] < losses[0] and \
-        all(c == (18, 18, 32) for c in per_step)
+        all(c == (18, 18, 32) for c in per_step) and \
+        counts["decoder_frame_step"] == 0
     emit(row)
     if not row["ok"]:
         raise AssertionError("train phase failed: %s" % row)
@@ -872,7 +1194,7 @@ def train_phase(seed, steps=10):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the training CLI
+# phase 10: the training CLI
 # ---------------------------------------------------------------------------
 
 # small widths with the kernels' head dims: encoder 128 / 2 heads (D=64),
@@ -973,6 +1295,10 @@ KERNEL_SOURCES = {
                             "layernorm_bwd.cu",
                             "few_shot_transformer_tts_tpu/ops/"
                             "fused_layernorm.py:126"),
+    "decoder_frame_step": ("few_shot_transformer_tts_torch/csrc/"
+                           "decoder_step.cu",
+                           "few_shot_transformer_tts_tpu/ops/"
+                           "pallas_decode.py:346"),
 }
 
 
@@ -986,8 +1312,8 @@ def kernel_line(name, row, err, launches, by_path):
             "library_ms": row["library_ms"]}
 
 
-PHASES = ("kernel_check", "train_kernel_check", "main_path", "cli", "train",
-          "train_cli")
+PHASES = ("kernel_check", "train_kernel_check", "decode_kernel_check",
+          "main_path", "main_path_fused", "cli", "train", "train_cli")
 
 
 def main():
@@ -1038,11 +1364,20 @@ def main():
         out["kernel_check"] = kernel_phase(args.seed)
     if "train_kernel_check" in phases:
         out["train_kernel_check"] = train_kernel_phase(args.seed)
-    if "main_path" in phases or "cli" in phases:
-        out["model"], out["synthesis_launches"] = main_path_phase(args.seed)
-    if "cli" in phases:
-        cli_phase(out["model"], args.out_dir)
-    out.pop("model", None)
+    if {"decode_kernel_check", "main_path", "main_path_fused",
+            "cli"} & set(phases):
+        hp = default_config()
+        model = flagship_model(hp, args.seed, "cuda")
+        batch = flagship_batch(hp, args.seed)
+        if "decode_kernel_check" in phases:
+            out["decode"] = decode_kernel_phase(model, hp, batch, args.seed)
+        if "main_path" in phases:
+            out["eager"] = main_path_phase(model, hp, batch, args.seed)
+        if "main_path_fused" in phases:
+            out["fused"] = main_path_fused_phase(model, hp, batch)
+        if "cli" in phases:
+            cli_phase(model, args.out_dir)
+        del model
     if "train" in phases:
         out["train"] = train_phase(args.seed)
     if "train_cli" in phases:
@@ -1054,7 +1389,8 @@ def main():
     rows = out["train_kernel_check"]
     train = out["train"]
     paths = lambda name: {
-        "synthesize_batch": out["synthesis_launches"][name],
+        "synthesize_batch": out["eager"][name],
+        "synthesize_batch_fused": out["fused"][name],
         "train_10_steps": train[name]}
     dec = rows["decoder_causal"]
     emit({"kernels": [
@@ -1069,6 +1405,11 @@ def main():
                     rows["ln_decoder"]["max_abs_err_dx"],
                     train["layer_norm_backward"],
                     paths("layer_norm_backward")),
+        # the fused decode's main path is synthesis; a frame at step 256
+        kernel_line("decoder_frame_step", out["decode"][256],
+                    out["decode"][256]["max_abs_err"],
+                    out["fused"]["decoder_frame_step"],
+                    paths("decoder_frame_step")),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

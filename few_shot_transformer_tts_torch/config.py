@@ -10,8 +10,11 @@ port reads only the ones its code paths use.
 ``use_pallas_attention`` selects the hand-written CUDA attention kernels
 (``ops/mha.py``, forward and backward) for the full-sequence attention path
 on CUDA tensors; ``use_fused_layernorm`` the LayerNorm backward kernel
-(``ops/layernorm.py``); ``wire_mel_int16`` the int16 host-to-device copy of
-the mel targets in training.
+(``ops/layernorm.py``); ``use_pallas_decode`` the fused decode step
+(``ops/decode.py``, one CUDA kernel per frame through every decoder layer)
+for deterministic synthesis without self-alignments, off by default as in
+the JAX package; ``wire_mel_int16`` the int16 host-to-device copy of the
+mel targets in training.
 ``use_external_embed=True`` is rejected: the reference declares it but no code
 path reads it.
 """
@@ -116,6 +119,9 @@ class Config:
     # Full-sequence attention through the hand-written kernels (ops/mha.py)
     # when the tensors lie on a CUDA device.
     use_pallas_attention: bool = True
+    # Fused decode step (ops/decode.py) in deterministic synthesis without
+    # self-alignments.  Its kernel gives the same bits for the same inputs,
+    # so a fused synthesis repeats exactly.
     use_pallas_decode: bool = False
     use_fused_adam: bool = False
     use_fused_layernorm: bool = True

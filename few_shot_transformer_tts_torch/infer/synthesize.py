@@ -11,11 +11,16 @@ Two dropout modes: ``deterministic=True`` (dropout off), and the reference's
 decoder-dropout-on sampling (``m.eval(); m.decoder.train()``, reference
 eval.py:116-117) with the masks drawn from a ``torch.Generator``.
 
-The frame loop is a Python loop over eager PyTorch ops.  It asks the device
-whether every row has finished only every ``_STOP_CHECK_INTERVAL`` frames,
-so the host does not wait on the device each frame; frames run after the
-last row finished change no returned value (rows are independent, lengths
-are frozen, and the outputs are cut at the true step count).
+The frame loop is a Python loop.  Each frame runs either the eager decoder
+step (per-layer PyTorch ops over KV caches) or, with
+``hp.use_pallas_decode`` on a deterministic decode without self-alignments
+(the JAX package's dispatch, less its TPU-only width gate), the fused step:
+one ``ops/decode.py:decoder_frame_step`` call runs every decoder layer.  The
+loop asks the device whether every row has finished only every
+``_STOP_CHECK_INTERVAL`` frames, so the host does not wait on the device
+each frame; frames run after the last row finished change no returned value
+(rows are independent, lengths are frozen, and the outputs are cut at the
+true step count).
 """
 
 from __future__ import annotations
@@ -32,10 +37,13 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..config import Config
-from ..models.common import length_mask, padding_bias
+from ..models.common import (NEG_INF, length_mask, padding_bias,
+                             sinusoid_position_encoding)
 from ..models.tacotron import ByteToMel
+from ..ops import decode
 
 _STOP_CHECK_INTERVAL = 16
 
@@ -89,21 +97,81 @@ def matmul_weights_in(model: ByteToMel, dtype: torch.dtype):
             mod.weight = w
 
 
+def _eager_frames(model: ByteToMel, enc_args, memory_bias, max_frames: int,
+                  deterministic: bool, collect_self: bool,
+                  generator: Optional[torch.Generator]):
+    """The per-layer decoder step over KV caches: a function (prev_mel,
+    step, finished) -> (mel, stop, encdec align [L, B, H, T_in], self align
+    [L, B, H, step + 1] or None)."""
+    _, memory_kv = model.encode(*enc_args)
+    cache = model.init_decode_cache(memory_bias.shape[0], max_frames)
+
+    def frame(prev_mel, step, finished):
+        return model.decode_step(
+            prev_mel, step, cache, memory_kv, memory_bias,
+            decoder_dropout=not deterministic, generator=generator,
+            finished=finished, collect_self=collect_self)
+    return frame
+
+
+def _fused_frames(model: ByteToMel, enc_args, memory_bias, max_frames: int):
+    """The fused decoder step (counterpart of the JAX package's
+    ``_fused_frames_loop``): weights stacked once, memory K/V for every layer
+    in one product, then per frame the prenet, the PE, one
+    ``decoder_frame_step`` call, the cache write at ``step`` and the output
+    LN and heads.  Deterministic decode only."""
+    hp, dtype = model.hp, model.dtype
+    dec = model.decoder.decoder
+    enc = model.encoder(*enc_args, deterministic=True)
+    w = decode.stack_decoder_params(dec, dtype)
+    mem_k, mem_v = decode.project_memory(enc, w.pop("w_kv"), dtype)
+    b, t_in = memory_bias.shape[0], memory_bias.shape[-1]
+    bias = F.pad(memory_bias[:, 0, 0, :].float(),
+                 (0, mem_k.shape[2] - t_in), value=NEG_INF)
+    cache_shape = (hp.n_decoder_layer, b, decode.padded_cap(max_frames),
+                   hp.decoder_hidden)
+    cache_k = torch.zeros(cache_shape, dtype=dtype, device=enc.device)
+    cache_v = torch.zeros(cache_shape, dtype=dtype, device=enc.device)
+    pe = sinusoid_position_encoding(max_frames, hp.decoder_hidden,
+                                    enc.device)
+
+    def frame(prev_mel, step, finished):
+        x = model.decoder_inputs(prev_mel, finished)
+        x = x + pe[step].to(x.dtype) * dec.pe_scale.to(x.dtype)
+        x_out, align, k_new, v_new = decode.decoder_frame_step(
+            x.float(), step, w, cache_k, cache_v, mem_k, mem_v, bias,
+            num_heads=hp.n_attention_head)
+        cache_k[:, :, step] = k_new
+        cache_v[:, :, step] = v_new
+        mel, stop = model.decoder_outputs(dec.output_layer_norm(
+            x_out.to(dtype)))
+        # [L, B, TmP, H] -> [L, B, H, T_in]
+        return mel, stop, align.permute(0, 1, 3, 2)[..., :t_in], None
+    return frame
+
+
 @torch.no_grad()
 def _decode_loop(model: ByteToMel, inputs, input_lengths, input_spk_ids,
                  input_language_vecs, max_frames: int, deterministic: bool,
-                 collect_alignments: bool,
-                 generator: Optional[torch.Generator]):
+                 collect_alignments: bool, collect_self: bool,
+                 use_fused: bool, generator: Optional[torch.Generator]):
     hp = model.hp
     b, t_in = inputs.shape
-    _, memory_kv = model.encode(inputs, input_lengths, input_spk_ids,
-                                input_language_vecs)
+    enc_args = (inputs, input_lengths, input_spk_ids, input_language_vecs)
     memory_bias = padding_bias(length_mask(input_lengths, t_in))
-    cache = model.init_decode_cache(b, max_frames)
+    if use_fused:
+        frame = _fused_frames(model, enc_args, memory_bias, max_frames)
+    else:
+        frame = _eager_frames(model, enc_args, memory_bias, max_frames,
+                              deterministic, collect_self, generator)
     dev = inputs.device
 
     mels = torch.zeros(b, max_frames, hp.num_mels, device=dev)
     aligns = []
+    # self-attention rows over the decoded frames; opt-in, O(L*B*H*T^2)
+    self_aligns = torch.zeros(
+        hp.n_decoder_layer, b, hp.n_attention_head, max_frames, max_frames,
+        device=dev) if collect_self else None
     finished = torch.zeros(b, dtype=torch.bool, device=dev)
     target_lengths = torch.ones(b, dtype=torch.int32, device=dev)
     prev_mel = torch.zeros(b, hp.num_mels, device=dev)
@@ -111,13 +179,12 @@ def _decode_loop(model: ByteToMel, inputs, input_lengths, input_spk_ids,
     for step in range(max_frames):
         if step % _STOP_CHECK_INTERVAL == 0 and step and bool(finished.all()):
             break
-        mel, stop, align = model.decode_step(
-            prev_mel, step, cache, memory_kv, memory_bias,
-            decoder_dropout=not deterministic, generator=generator,
-            finished=finished)
+        mel, stop, align, self_align = frame(prev_mel, step, finished)
         mels[:, step] = mel
         if collect_alignments:
             aligns.append(align)
+        if collect_self:
+            self_aligns[:, :, :, step, :step + 1] = self_align
         finished = finished | (stop > 0)
         target_lengths = torch.where(finished, target_lengths,
                                      target_lengths + 1)
@@ -129,13 +196,16 @@ def _decode_loop(model: ByteToMel, inputs, input_lengths, input_spk_ids,
     residual = model.postnet_residual(mels, target_lengths)
     align_t = torch.stack(aligns[:n_steps], dim=3) if collect_alignments \
         else None                                   # [L, B, H, T_dec, T_enc]
-    return mels, mels + residual, target_lengths, align_t, n_steps
+    return (mels, mels + residual, target_lengths, align_t,
+            self_aligns[..., :n_steps, :n_steps] if collect_self else None,
+            n_steps)
 
 
 def synthesize_batch(model: ByteToMel, batch: Dict[str, Any], hp: Config,
                      deterministic: bool = False,
                      generator: Optional[torch.Generator] = None,
                      collect_alignments: bool = True,
+                     collect_self_alignments: bool = False,
                      max_frames: Optional[int] = None) -> Dict[str, Any]:
     """Greedy AR synthesis of a packed batch (reference synthesize.py:17-72)
     on the model's device.
@@ -143,9 +213,13 @@ def synthesize_batch(model: ByteToMel, batch: Dict[str, Any], hp: Config,
     batch needs inputs [B, Tin] and input_lengths [B]; optional
     input_spk_ids, input_language_vecs, names.  Returns the reference's
     result dict (numpy): names, mel_pre, mel_aft, alignments (``encdec``: a
-    list per decoder layer of [B, H, T_enc, T_dec]), input_lengths,
-    generated_lengths.  With ``deterministic=False`` decoder dropout is on and
-    its masks come from ``generator`` (a fresh randomly seeded one if None).
+    list per decoder layer of [B, H, T_enc, T_dec]; ``self``: the same with
+    the decoded frames as memory, [B, H, T_dec, T_dec], when
+    ``collect_self_alignments``, an opt-in O(L*B*H*T^2) buffer),
+    input_lengths, generated_lengths.  With ``deterministic=False`` decoder
+    dropout is on and its masks come from ``generator`` (a fresh randomly
+    seeded one if None).  ``hp.use_pallas_decode`` selects the fused decoder
+    step for deterministic decodes without self-alignments.
     """
     tic = time.time()
     inputs = np.asarray(batch["inputs"])
@@ -156,12 +230,16 @@ def synthesize_batch(model: ByteToMel, batch: Dict[str, Any], hp: Config,
         generator = torch.Generator(dev)
         generator.seed()
     cap = int(max_frames or hp.max_generation_frames)
+    use_fused = bool(hp.use_pallas_decode and deterministic and
+                     not collect_self_alignments)
 
     as_t = lambda a: torch.from_numpy(a).to(dev)
     with matmul_weights_in(model, model.dtype):
-        mels, mel_aft, target_lengths, aligns, n_steps = _decode_loop(
-            model, as_t(inputs_p), as_t(input_lengths), as_t(spk), as_t(lvec),
-            cap, deterministic, collect_alignments, generator)
+        mels, mel_aft, target_lengths, aligns, self_aligns, n_steps = \
+            _decode_loop(model, as_t(inputs_p), as_t(input_lengths),
+                         as_t(spk), as_t(lvec), cap, deterministic,
+                         collect_alignments, collect_self_alignments,
+                         use_fused, generator)
 
     mels = mels[:b, :n_steps].cpu().numpy()
     mel_aft = mel_aft[:b, :n_steps].cpu().numpy()
@@ -180,6 +258,11 @@ def synthesize_batch(model: ByteToMel, batch: Dict[str, Any], hp: Config,
         # reference layout: list per layer of [B, H, T_enc(mem), T_dec(query)]
         alignments["encdec"] = [a[i].transpose(0, 1, 3, 2)
                                 for i in range(a.shape[0])]
+    if collect_self_alignments:
+        s = self_aligns[:, :b].float().cpu().numpy()
+        # same layout with mem = decoded frames (reference synthesize.py:69-71)
+        alignments["self"] = [s[i].transpose(0, 1, 3, 2)
+                              for i in range(s.shape[0])]
 
     return {"names": batch.get("names", [str(i) for i in range(b)]),
             "mel_pre": mels, "mel_aft": mel_aft,

@@ -198,17 +198,21 @@ class TransformerDecoder(nn.Module):
     def decode_step(self, x: torch.Tensor, step: int,
                     cache: Dict[str, torch.Tensor], memory_kv,
                     memory_bias: torch.Tensor, deterministic: bool = True,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    collect_self: bool = False):
         """One decoder step.  x [B, H] = prenet(prev_frame); the PE is added
         here.  Updates ``cache`` in place.  Returns (out [B, H],
-        encdec_align [n_layers, B, heads, Tm])."""
+        encdec_align [n_layers, B, heads, Tm], self_align [n_layers, B,
+        heads, step + 1] (the pre-dropout self-attention weights) or None
+        unless ``collect_self``)."""
         drop = lambda t: dropout(t, self.rate, not deterministic, generator)
         x = drop(x + cache["pe"][step].to(x.dtype) * self.pe_scale.to(x.dtype))
-        aligns = []
+        aligns, self_aligns = [], []
         for i in range(len(self.self_attentions)):
-            y, _ = self.self_attentions[i].decode_self_step(
+            y, a = self.self_attentions[i].decode_self_step(
                 self.attn_layer_norms[i](x), cache[f"k_{i}"], cache[f"v_{i}"],
                 step, deterministic, generator)
+            self_aligns.append(a)
             x = x + drop(y)
             y, a = self.encdec_attentions[i].decode_cross_step(
                 self.encdec_layer_norms[i](x), memory_kv[i][0],
@@ -218,4 +222,5 @@ class TransformerDecoder(nn.Module):
             y = self.ffn_layers[i](self.ffn_layer_norms[i](x), deterministic,
                                    generator)
             x = x + drop(y)
-        return self.output_layer_norm(x), torch.stack(aligns)
+        return self.output_layer_norm(x), torch.stack(aligns), \
+            (torch.stack(self_aligns) if collect_self else None)

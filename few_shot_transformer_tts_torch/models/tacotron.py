@@ -274,22 +274,36 @@ class ByteToMel(nn.Module):
     def decode_step(self, prev_mel, step: int, cache, memory_kv, memory_bias,
                     decoder_dropout: bool = False,
                     generator: Optional[torch.Generator] = None,
-                    finished: Optional[torch.Tensor] = None):
+                    finished: Optional[torch.Tensor] = None,
+                    collect_self: bool = False):
         """One AR step: prev_mel [B, M] -> (mel [B, M], stop_logit [B],
-        encdec_align [n_layers, B, H, Tm]); ``cache`` is updated in place.
-        Rows where ``finished`` [B] is True feed zeros to the decoder (the
-        reference imputes prenet outputs beyond frozen target lengths,
+        encdec_align [n_layers, B, H, Tm], self_align [n_layers, B, H,
+        step + 1] or None unless ``collect_self``); ``cache`` is updated in
+        place.  Rows where ``finished`` [B] is True feed zeros to the decoder
+        (the reference imputes prenet outputs beyond frozen target lengths,
         modules.py:114, synthesize.py:39-45)."""
         deterministic = not decoder_dropout
+        x = self.decoder_inputs(prev_mel, finished, deterministic, generator)
+        out, align, self_align = self.decoder.decoder.decode_step(
+            x, step, cache, memory_kv, memory_bias, deterministic, generator,
+            collect_self)
+        mel, stop = self.decoder_outputs(out)
+        return mel, stop, align, self_align
+
+    def decoder_inputs(self, prev_mel, finished=None,
+                       deterministic: bool = True,
+                       generator: Optional[torch.Generator] = None):
+        """The prenet of the previous frame, zeros for ``finished`` rows."""
         x = self.decoder.prenet(prev_mel.to(self.dtype), deterministic,
                                 generator)
         if finished is not None:
             x = torch.where(finished[:, None], torch.zeros_like(x), x)
-        out, align = self.decoder.decoder.decode_step(
-            x, step, cache, memory_kv, memory_bias, deterministic, generator)
-        mel = self.decoder.mel_net(out).float()
-        stop = self.decoder.stop_net(out)[..., 0].float()
-        return mel, stop, align
+        return x
+
+    def decoder_outputs(self, out):
+        """(mel [B, M], stop_logit [B]) fp32 of the decoder output."""
+        return (self.decoder.mel_net(out).float(),
+                self.decoder.stop_net(out)[..., 0].float())
 
     def postnet_residual(self, mels, lengths, train: bool = False):
         return self.postnet(mels.to(self.dtype), lengths, train=train).float()

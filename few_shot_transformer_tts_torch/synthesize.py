@@ -11,6 +11,9 @@ the JAX package's root ``synthesize.py`` plus ``--device`` (default cuda; a
 missing card raises rather than falling back).  The checkpoint is a
 ``torch.save({model, optim, sched, step})`` file; the JAX package's msgpack
 checkpoints are not read.  Fp32 matmuls and convolutions run without TF32.
+``--hparams use_pallas_decode=True --deterministic`` decodes each frame with
+the fused decode kernel (``ops/decode.py``), one launch per frame through
+every decoder layer.
 """
 
 import argparse
