@@ -68,13 +68,39 @@ uncaught exception and a non-zero exit):
   10. train_cli: ``python -m few_shot_transformer_tts_torch.train`` in-process
      on a tiny synthetic corpus the script writes (small widths, head dims
      64/96): 3 steps with a checkpoint, then a resume for 1 more step.
+  11. dsp_kernel_check (after phase 4): the fused STFT -> mel kernel
+     (csrc/frame_mel.cu) against its plain version on voice-like audio
+     from --seed: 16 utterances of 10 s (BT = 12,816 frames), 3 of 1.234 s
+     (99 frames, not a multiple of the 64-frame tile) and one of 0.4 s;
+     max and mean errors against TOL_MEL, kernel / plain ms, the rfft
+     route's ms as the library time, the operations bound.  Then
+     melspectrogram(use_pallas=True) against numpy's get_spectrograms on
+     one utterance, and the kernel's main path: one counted batched
+     melspectrogram call (melspectrogram_batch).
+  12. adam_kernel_check: the fused Adam kernel (csrc/fused_adam.cu) on the
+     flagship's 37 kernel leaves (61.7M elements) against its plain
+     version, bit for bit; kernel / plain / torch.optim.Adam(fused=True)
+     ms beside the bytes bound.
+  13. train_fused_adam (after phase 9): phase 9's 10 steps with
+     use_fused_adam=True: 37 fused_adam_step launches and 18/18/32 other
+     kernel calls per step, finite and falling losses, sec/step beside
+     phase 9's, a profiled step, and one FusedAdam step against
+     torch.optim.Adam loaded from its state dict (TOL_ADAM_STEP), with the
+     host time of each.
+  14. vocode (after phase 7): vocode_batch on the eager synthesis mels
+     (B=8, 512 frames, 60 Griffin-Lim iterations): seconds, audio s/s, the
+     numpy mel2wav's seconds for one utterance on the host, two calls the
+     same bits, and at n_iter=2 one row against numpy by envelope
+     correlation.
 
-Then a {"kernels": [...]} line, and last {"ok": true, "device": {...}}.
+Then a {"kernels": [...]} line (six kernels), and last {"ok": true,
+"device": {...}}.
 ``--phases`` (comma-separated) runs a subset, for debugging.
 """
 
 import argparse
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -94,13 +120,18 @@ from few_shot_transformer_tts_torch.models.common import (length_mask,
                                                           padding_bias)
 from few_shot_transformer_tts_torch.models.tacotron import (compute_loss,
                                                             init_weights_)
-from few_shot_transformer_tts_torch.ops import cuda_build
+from few_shot_transformer_tts_torch.infer import vocode_batch
+from few_shot_transformer_tts_torch.ops import cuda_build, dsp, dsp_torch
 from few_shot_transformer_tts_torch.ops import decode as decode_ops
 from few_shot_transformer_tts_torch.ops.decode import (
     STAGES, decoder_frame_step, decoder_frame_step_plain, project_memory,
     stack_decoder_params)
+from few_shot_transformer_tts_torch.ops.fused_adam import (
+    FusedAdam, adam_leaf, adam_leaf_plain, kernel_leaf_params)
 from few_shot_transformer_tts_torch.ops.layernorm import (
     layer_norm_backward, layer_norm_backward_plain)
+from few_shot_transformer_tts_torch.ops.mel import (
+    FRAME_TILE, fused_frame_mel, fused_frame_mel_plain, windowed_frames)
 from few_shot_transformer_tts_torch.ops.mha import (
     dropout_keep_mask, mha_backward, mha_backward_plain, mha_forward,
     mha_forward_plain)
@@ -168,6 +199,30 @@ TOL_DECODE = {
     "small_c128_bf16": {"rel": 1e-2, "l2": 1e-4, "l1": 1e-4, "row": 1e-4},
     "flagship_fp32": {"rel": 1e-5, "l2": 2e-6, "l1": 1e-5, "row": 1e-5}}
 TOL_ROW_SUM = 2e-6
+# fused_frame_mel, kernel vs plain version on the card, on the normalised
+# mel ([-4, 4]).  Both take the DFT in fp32 in other summation orders, so a
+# magnitude near a bf16 rounding boundary may round to its neighbour: one
+# bf16 ulp (0.4%) moves a mel band that bin carries alone by 0.034 dB,
+# 2.7e-3 on this scale; such flips are rare, so the mean stays small.  The
+# kernel read max <= 9.8e-4 and mean <= 1.7e-6 on the H100 (the CPU test:
+# 1.2e-3 and 2.2e-6 between the plain version and the TPU kernel in
+# interpret mode); a kernel mutant that skips the bf16 rounding of the
+# magnitude read mean 2.8e-4, one that drops 32 taps 2.7e-3.
+TOL_MEL = {"max": 1e-2, "mean": 1e-5}
+# melspectrogram(use_pallas=True) against numpy's float64 get_spectrograms:
+# the bar of tests/test_mel_pallas.py
+TOL_MEL_NUMPY = {"max": 0.05, "mean": 0.01}
+# fused_adam_step vs adam_leaf_plain: each operation is rounded once in
+# both, in the same order (the kernel uses __fmul_rn / __fadd_rn /
+# __fdiv_rn / __fsqrt_rn, so nvcc contracts nothing into an FMA): the same
+# bits
+TOL_ADAM_ULPS = 0
+# One FusedAdam step against torch.optim.Adam (foreach) from the same
+# state and gradients, max |p_fused - p_adam|: Adam's lerp and its
+# sqrt(v)/sqrt(bc2) denominator round differently from b1 m + (1 - b1) g
+# and r sqrt(v), a few ulps of an update of about lr, plus one rounding of
+# p (|p| < 8 at init: one ulp is at most 4.8e-7)
+TOL_ADAM_STEP = 1e-6
 DECODE_WEIGHTS = ("w_qkv", "w_out", "w_q", "w_xout", "w_ffn1", "w_ffn2")
 
 
@@ -771,7 +826,9 @@ def teacher_forced_check(model, plain, hp, batch, seed, t_out=448):
 
 KERNELS = {"mha_forward": mha_forward, "mha_backward": mha_backward,
            "layer_norm_backward": layer_norm_backward,
-           "decoder_frame_step": decoder_frame_step}
+           "decoder_frame_step": decoder_frame_step,
+           "fused_frame_mel": fused_frame_mel, "fused_adam_step": adam_leaf}
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 def reset_counts():
@@ -814,8 +871,7 @@ def main_path_phase(model, hp, batch, seed):
     frames = 512
     out, wall, counts = timed_synthesis(model, hp, batch, frames)
     launches = counts["mha_forward"]
-    if counts != {"mha_forward": hp.n_encoder_layer, "mha_backward": 0,
-                  "layer_norm_backward": 0, "decoder_frame_step": 0}:
+    if counts != dict(NO_LAUNCHES, mha_forward=hp.n_encoder_layer):
         raise AssertionError("main path launched the kernels %s times, "
                              "expected %d forward calls and no other"
                              % (counts, hp.n_encoder_layer))
@@ -868,7 +924,7 @@ def main_path_phase(model, hp, batch, seed):
           "frames_per_s": int(np.sum(out_d["generated_lengths"])) / wall_d,
           "kernel_launches": mha_forward.launches - before})
     profile_phase(model, hp, batch, "profile")
-    return counts
+    return counts, out
 
 
 def main_path_fused_phase(model, hp, batch):
@@ -879,8 +935,8 @@ def main_path_fused_phase(model, hp, batch):
     frames = 512
     out, wall, counts = timed_synthesis(model, hp_fused, batch, frames)
     check_mels(out, frames, hp)
-    want = {"mha_forward": hp.n_encoder_layer, "mha_backward": 0,
-            "layer_norm_backward": 0, "decoder_frame_step": frames}
+    want = dict(NO_LAUNCHES, mha_forward=hp.n_encoder_layer,
+                decoder_frame_step=frames)
     # the fused path is deterministic: the same call gives the same bits
     again = synthesize_batch(model, batch, hp_fused, deterministic=True,
                              collect_alignments=False, max_frames=frames)
@@ -1119,7 +1175,7 @@ def step_agreement(hp, seed, batch, dtype):
 
 
 def train_profile(model, optimizer, scheduler, batch, hp, seed, step,
-                  wall_ms):
+                  wall_ms, phase="train_profile"):
     """One step under torch.profiler: device busy time against the
     unprofiled step time, launches, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
@@ -1130,12 +1186,17 @@ def train_profile(model, optimizer, scheduler, batch, hp, seed, step,
         torch.cuda.synchronize()
     kernels, ranges = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    return {"phase": "train_profile", "wall_ms_unprofiled": wall_ms,
+    return {"phase": phase, "wall_ms_unprofiled": wall_ms,
             "device_busy_ms": busy_ms if kernels else None,
             "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": top_events(kernels, 10),
-            "annotation_ranges_excluded": top_events(ranges, 8)}
+            "annotation_ranges_excluded": top_events(ranges, 8),
+            "top_host_ops": [
+                {"name": e.key[:60], "count": e.count,
+                 "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                for e in sorted(prof.key_averages(),
+                                key=lambda e: -e.self_cpu_time_total)[:8]]}
 
 
 def train_phase(seed, steps=10):
@@ -1190,7 +1251,7 @@ def train_phase(seed, steps=10):
         raise AssertionError("train phase failed: %s" % row)
     emit(train_profile(model, optimizer, scheduler, batch, hp, seed, steps,
                        sec * 1e3))
-    return counts
+    return counts, sec, state
 
 
 # ---------------------------------------------------------------------------
@@ -1284,6 +1345,368 @@ def train_cli_phase(out_dir, seed):
         raise AssertionError("train CLI phase failed: %s" % row)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: feature extraction through the fused_frame_mel kernel
+# ---------------------------------------------------------------------------
+
+def utterances(rng, b, seconds, sr=16000):
+    """b voice-like rows of ``seconds`` from the seed: seven harmonics of a
+    wandering pitch under a syllable-rate envelope, plus noise."""
+    n = int(round(seconds * sr))
+    t = np.arange(n) / sr
+    rows = []
+    for _ in range(b):
+        pitch = rng.uniform(90, 250) * (1 + 0.1 * np.sin(
+            2 * np.pi * rng.uniform(0.2, 1.0) * t))
+        phase = 2 * np.pi * np.cumsum(pitch) / sr
+        voiced = sum(np.sin(k * phase) / k for k in range(1, 8))
+        env = 0.5 * (1 + np.sin(2 * np.pi * rng.uniform(2, 5) * t +
+                                rng.uniform(0, 2 * np.pi)))
+        rows.append(0.3 * env * voiced + 0.01 * rng.randn(n))
+    return np.stack(rows).astype(np.float32)
+
+
+def mel_bound(rows, length, n_frames, hp):
+    """Least time for the kernel's function: the signal read once and the
+    mel written once; per frame the operations the function needs, a real
+    FFT (~2.5 n log2 n), the magnitude of each bin (4) and the mel product
+    over the filterbank's nonzero weights, at the fp32 rate.  Beside it the
+    operations of a DFT over the window's nonzero taps (the kernel's route)
+    and over all n_fft taps (the TPU kernel's products), dense mel product
+    included."""
+    bt = rows * n_frames
+    n_freqs = 1 + hp.n_fft // 2
+    taps = int(np.count_nonzero(dsp._padded_window(hp.win_length,
+                                                   hp.n_fft)))
+    mel_nonzero = int(np.count_nonzero(dsp.mel_filterbank(
+        hp.sr, hp.n_fft, hp.num_mels)))
+    nbytes = rows * length * 4 + bt * hp.num_mels * 4
+    flops_fft = 2.5 * bt * hp.n_fft * np.log2(hp.n_fft)
+    flops = flops_fft + 4.0 * bt * n_freqs + 2.0 * bt * mel_nonzero
+    dense_mel = 2.0 * bt * n_freqs * hp.num_mels
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS_PER_S[torch.float32] * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops, "flops_fft": flops_fft,
+            "mel_weights_nonzero": mel_nonzero, "taps": taps,
+            "flops_dft_taps": 4.0 * bt * taps * n_freqs + dense_mel,
+            "flops_full_n_fft_dft": 4.0 * bt * hp.n_fft * n_freqs +
+            dense_mel}
+
+
+def check_mel(name, rng, b, seconds, hp, iters=20):
+    """fused_frame_mel against fused_frame_mel_plain on one batch of
+    pre-emphasised utterances."""
+    wav = torch.from_numpy(utterances(rng, b, seconds)).cuda()
+    y = dsp_torch.preemphasis(wav, hp.preemphasis)
+    got = fused_frame_mel(y, hp)
+    want = fused_frame_mel_plain(windowed_frames(y, hp), hp)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    row = {"phase": "dsp_kernel_check", "case": name, "B": b,
+           "seconds": seconds, "L": wav.shape[1], "T": got.shape[1],
+           "BT": b * got.shape[1], "frame_tile": FRAME_TILE,
+           "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+           "tol": TOL_MEL, "finite": bool(torch.isfinite(got).all()),
+           "ms": cuda_ms(lambda: fused_frame_mel(y, hp), iters),
+           "plain_ms": cuda_ms(lambda: fused_frame_mel_plain(
+               windowed_frames(y, hp), hp), max(iters // 5, 2)),
+           # several calls: framing, cuFFT rfft, |.|, fp32 mel product and
+           # the dB epilogue (melspectrogram(use_pallas=False), whose
+           # pre-emphasis adds one elementwise op)
+           "library_ms": cuda_ms(lambda: dsp_torch.melspectrogram(wav, hp),
+                                 iters),
+           "library": "melspectrogram(use_pallas=False): rfft route, "
+                      "several calls",
+           **mel_bound(b, wav.shape[1], got.shape[1], hp)}
+    row["ok"] = row["max_abs_err"] <= TOL_MEL["max"] and \
+        row["mean_abs_err"] <= TOL_MEL["mean"] and row["finite"] and \
+        got.shape == (b, 1 + wav.shape[1] // hp.hop_length, hp.num_mels)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("fused_frame_mel disagrees with its plain "
+                             "version at %s: %s" % (name, row))
+    return row, wav
+
+
+def dsp_kernel_phase(seed):
+    """The kernel at full width (16 utterances of 10 s), at a frame count
+    that is not a multiple of its tile and on a short utterance; the fused
+    route against the numpy reference; then the main path: one batched
+    melspectrogram(use_pallas=True) call, counted."""
+    hp = default_config()
+    rng = np.random.RandomState(seed + 40)
+    rows = {}
+    rows["full"], wav = check_mel("full_B16_10s", rng, 16, 10.0, hp)
+    check_mel("B3_T99", rng, 3, 1.234, hp)
+    check_mel("short_0.4s", rng, 1, 0.4, hp)
+    one = wav[:1]
+    got = dsp_torch.melspectrogram(one, hp, use_pallas=True)[0].cpu().numpy()
+    want = dsp.get_spectrograms(one[0].cpu().numpy(), hp)
+    err = np.abs(got - want)
+    row = {"phase": "dsp_kernel_check", "case": "fused_route_vs_numpy",
+           "seconds": 10.0, "max_abs_err": float(err.max()),
+           "mean_abs_err": float(err.mean()), "tol": TOL_MEL_NUMPY}
+    row["ok"] = got.shape == want.shape and \
+        row["max_abs_err"] <= TOL_MEL_NUMPY["max"] and \
+        row["mean_abs_err"] <= TOL_MEL_NUMPY["mean"]
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("the fused mel route disagrees with numpy: %s"
+                             % row)
+    # the main path of the kernel: a batch of waveforms to mels
+    torch.cuda.synchronize()
+    reset_counts()
+    tic = time.perf_counter()
+    mels = dsp_torch.melspectrogram(wav, hp, use_pallas=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tic
+    counts = read_counts()
+    row = {"phase": "melspectrogram_batch", "B": wav.shape[0],
+           "audio_s": wav.numel() / hp.sr, "wall_s": wall,
+           "audio_s_per_s": wav.numel() / hp.sr / wall,
+           "launches_by_kernel": counts}
+    row["ok"] = counts == dict(NO_LAUNCHES, fused_frame_mel=1) and \
+        bool(torch.isfinite(mels).all())
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("melspectrogram_batch failed: %s" % row)
+    rows["counts"] = counts
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the fused Adam kernel on the flagship's kernel leaves
+# ---------------------------------------------------------------------------
+
+def flagship_kernel_leaf_shapes(hp):
+    with torch.device("meta"):
+        model = ByteToMel(hp, device="meta")
+    return [tuple(p.shape) for p in kernel_leaf_params(model)]
+
+
+def ulps(got, want):
+    """Largest distance in units in the last place between two fp32
+    tensors of one sign pattern (0: the same bits)."""
+    return (got.view(torch.int32).long() -
+            want.view(torch.int32).long()).abs().max().item()
+
+
+def adam_kernel_phase(seed, iters=20):
+    """adam_leaf against adam_leaf_plain on the 37 leaves of the flagship
+    that take the kernel, at step 10 with the default betas and eps."""
+    hp = default_config()
+    shapes = flagship_kernel_leaf_shapes(hp)
+    gen = torch.Generator("cuda").manual_seed(seed + 50)
+    rnd = lambda shape, scale: torch.randn(
+        shape, generator=gen, device="cuda") * scale
+    p = [rnd(sh, 0.05) for sh in shapes]
+    g = [rnd(sh, 1e-2) for sh in shapes]
+    m = [rnd(sh, 1e-3) for sh in shapes]
+    v = [rnd(sh, 1e-3) ** 2 for sh in shapes]
+    t, lr = 10, hp.max_lr
+    b1, b2, eps = hp.adam_beta1, hp.adam_beta2, hp.adam_eps
+    coef = (lr / (1 - b1 ** t), (1 - b2 ** t) ** -0.5, b1, b2, eps)
+    clone = lambda xs: [x.clone() for x in xs]
+    pk, mk, vk = clone(p), clone(m), clone(v)
+    for leaf in zip(pk, g, mk, vk):
+        adam_leaf(*leaf, *coef)
+    pp, mp, vp = clone(p), clone(m), clone(v)
+    adam_leaf_plain(pp, g, mp, vp, *coef)
+    torch.cuda.synchronize()
+    errs = {"ulps_" + n: max(ulps(a, b) for a, b in zip(got, want))
+            for n, got, want in (("p", pk, pp), ("m", mk, mp),
+                                 ("v", vk, vp))}
+    max_abs = max(abs_err(a, b) for a, b in zip(pk, pp))
+    numel = sum(x.numel() for x in p)
+    # library: torch.optim.Adam's fused CUDA step over the same leaves
+    params = [torch.nn.Parameter(x.clone()) for x in p]
+    for q, gr in zip(params, g):
+        q.grad = gr
+    library = torch.optim.Adam(params, lr=lr, betas=(b1, b2), eps=eps,
+                               fused=True)
+    nbytes = 28 * numel
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = 13.0 * numel / PEAK_FLOPS_PER_S[torch.float32] * 1e3
+    row = {"phase": "adam_kernel_check", "leaves": len(shapes),
+           "elements": numel, **errs, "max_abs_err": max_abs,
+           "tol_ulps": TOL_ADAM_ULPS,
+           "ms": cuda_ms(lambda: [adam_leaf(*leaf, *coef) for leaf in
+                                  zip(pk, g, mk, vk)], iters),
+           "plain_ms": cuda_ms(lambda: adam_leaf_plain(pp, g, mp, vp, *coef),
+                               max(iters // 4, 2)),
+           "library_ms": cuda_ms(library.step, iters),
+           "library": "torch.optim.Adam(fused=True).step, timed only",
+           "bound_ms": max(t_bytes, t_flops),
+           "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+           "bytes": nbytes, "flops": 13.0 * numel}
+    row["ok"] = len(shapes) == 37 and numel == 61_661_184 and \
+        max(errs.values()) <= TOL_ADAM_ULPS and \
+        all(bool(torch.isfinite(x).all()) for x in pk)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("adam_leaf disagrees with its plain version: %s"
+                             % row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the flagship train step with use_fused_adam
+# ---------------------------------------------------------------------------
+
+def fused_vs_adam_step(model, optimizer, batch, hp):
+    """From one state and one set of gradients: a FusedAdam step against
+    torch.optim.Adam (foreach) loaded from FusedAdam's state dict."""
+    loss_and_grads(model, batch, hp)
+    start = [p.detach().clone() for p in model.parameters()]
+    saved = copy.deepcopy(optimizer.state_dict())
+    optimizer.step()
+    fused = [p.detach().clone() for p in model.parameters()]
+    with torch.no_grad():
+        for p, s0 in zip(model.parameters(), start):
+            p.copy_(s0)
+    adam = torch.optim.Adam(model.parameters(), lr=hp.max_lr,
+                            betas=(hp.adam_beta1, hp.adam_beta2),
+                            eps=hp.adam_eps, foreach=True)
+    adam.load_state_dict(saved)
+    adam.step()
+    torch.cuda.synchronize()
+    diff = max(abs_err(f, p) for f, p in zip(fused, model.parameters()))
+    lr = saved["param_groups"][0]["lr"]
+    return {"lr": lr, "max_abs_param_diff": diff,
+            "max_abs_param": max(p.abs().max().item() for p in fused),
+            "max_abs_update": max(abs_err(f, s0)
+                                  for f, s0 in zip(fused, start)),
+            # further steps of each (the parameters are not used again)
+            "fused_adam_step_ms": timed_steps(optimizer),
+            "torch_adam_step_ms": timed_steps(adam)}
+
+
+def timed_steps(optimizer, n=5):
+    """Medians over n optimizer steps from an idle card: host ms to queue
+    a step, and wall ms until the card has run it."""
+    host, wall = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        optimizer.step()
+        host.append((time.perf_counter() - tic) * 1e3)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - tic) * 1e3)
+    return {"host_ms": float(np.median(host)),
+            "wall_ms": float(np.median(wall))}
+
+
+def train_fused_adam_phase(seed, state, train_sec, steps=10):
+    """The flagship train step (bf16, B=16, T_in=192, T_out=448, the train
+    phase's batch) for ``steps`` steps with use_fused_adam=True: 37
+    fused_adam_step launches and 18/18/32 attention and LayerNorm kernel
+    calls per step, finite and falling losses, one step against
+    torch.optim.Adam.  ``state``: the train phase's initial weights (None:
+    made from the seed)."""
+    hp = default_config(use_fused_adam=True)
+    host = train_batch(hp, seed)
+    batch = device_batch(host, hp, "cuda")
+    if state is None:
+        model = init_weights_(ByteToMel(hp, device="cuda"), seed)
+    else:
+        model = ByteToMel(hp, device="cuda")
+        model.load_state_dict(state)
+    optimizer, scheduler = make_optimizer(model, hp)
+    frames = int(host["target_lengths"].sum())
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, times, per_step = [], [], []
+    for step in range(steps):
+        before = read_counts()
+        tic = time.perf_counter()
+        out = train_step(model, optimizer, scheduler, batch, hp,
+                         step_generator(seed, step, "cuda"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - tic)
+        losses.append(out["loss"])
+        after = read_counts()
+        per_step.append(tuple(after[k] - before[k] for k in (
+            "mha_forward", "mha_backward", "layer_norm_backward",
+            "fused_adam_step")))
+    counts = read_counts()
+    losses = torch.stack(losses).float().cpu().numpy().tolist()
+    sec = float(np.median(times[2:]))
+    profile = train_profile(model, optimizer, scheduler, batch, hp, seed,
+                            steps, sec * 1e3, "train_fused_adam_profile")
+    check = fused_vs_adam_step(model, optimizer, batch, hp)
+    row = {"phase": "train_fused_adam", "config": "default_config "
+           "(flagship), use_fused_adam=True", "B": 16, "T_in": 192,
+           "T_out": 448, "steps": steps, "optimizer": type(optimizer).__name__,
+           "losses": losses, "step_s": times, "sec_per_step": sec,
+           "train_phase_sec_per_step": train_sec,
+           "audio_s_per_s": frames * hp.frame_shift_ms / 1000.0 / sec,
+           "kernel_calls": counts, "kernel_calls_per_step": per_step,
+           "one_step_vs_torch_adam": check, "tol_step": TOL_ADAM_STEP,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    row["ok"] = isinstance(optimizer, FusedAdam) and \
+        all(np.isfinite(losses)) and losses[-1] < losses[0] and \
+        all(c == (18, 18, 32, 37) for c in per_step) and \
+        check["max_abs_param_diff"] <= TOL_ADAM_STEP
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("train_fused_adam failed: %s" % row)
+    emit(profile)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: batched Griffin-Lim on the card (vocode_batch)
+# ---------------------------------------------------------------------------
+
+def envelope_corr(a, b, n=400):
+    k = min(len(a), len(b))
+    env = lambda x: np.sqrt(np.convolve(x[:k] ** 2, np.ones(n) / n, "valid"))
+    return float(np.corrcoef(env(a), env(b))[0, 1])
+
+
+def vocode_phase(mel_aft, lengths, hp):
+    """vocode_batch on the eager main path's mels (B=8, 512 frames,
+    hp.n_iter iterations): seconds, audio s/s and the per-sample numpy
+    mel2wav on the host; two calls the same bits; at n_iter=2 one row
+    against the numpy path by envelope correlation."""
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    first = vocode_batch(mel_aft, lengths, hp)   # builds the cuFFT plans
+    wall_first = time.perf_counter() - tic
+    tic = time.perf_counter()
+    wavs = vocode_batch(mel_aft, lengths, hp)
+    wall = time.perf_counter() - tic
+    n0 = int(lengths[0])
+    hp2 = hp.replace(n_iter=2)   # (this also imports scipy for the timing)
+    corr = envelope_corr(vocode_batch(mel_aft[:1], lengths[:1], hp2)[0],
+                         dsp.mel2wav(mel_aft[0][:n0], hp2))
+    tic = time.perf_counter()
+    dsp.mel2wav(mel_aft[0][:n0], hp)
+    numpy_s = time.perf_counter() - tic
+    audio_s = sum(len(w) for w in wavs) / hp.sr
+    row = {"phase": "vocode", "B": len(wavs), "frames": [int(x) for x in
+                                                        lengths],
+           "n_iter": hp.n_iter, "wall_s": wall,
+           "wall_s_first_call": wall_first, "audio_s": audio_s,
+           "audio_s_per_s": audio_s / wall,
+           "numpy_mel2wav_one_utterance_s": numpy_s,
+           "repeat_bit_identical": all(np.array_equal(a, b)
+                                       for a, b in zip(wavs, first)),
+           "n_iter2_envelope_corr_vs_numpy": corr,
+           "finite": all(np.isfinite(w).all() for w in wavs),
+           # a row that ran to the cap counts one frame more than it has
+           "lengths_ok": [len(w) for w in wavs] ==
+           [(min(int(x), mel_aft.shape[1]) - 1) * hp.hop_length
+            for x in lengths]}
+    row["ok"] = row["repeat_bit_identical"] and corr > 0.9 and \
+        row["finite"] and row["lengths_ok"]
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("vocode phase failed: %s" % row)
+
+
 KERNEL_SOURCES = {
     "mha_forward": ("few_shot_transformer_tts_torch/csrc/mha_fwd.cu",
                     "few_shot_transformer_tts_tpu/ops/"
@@ -1299,6 +1722,11 @@ KERNEL_SOURCES = {
                            "decoder_step.cu",
                            "few_shot_transformer_tts_tpu/ops/"
                            "pallas_decode.py:346"),
+    "fused_frame_mel": ("few_shot_transformer_tts_torch/csrc/frame_mel.cu",
+                        "few_shot_transformer_tts_tpu/ops/"
+                        "mel_pallas.py:125"),
+    "fused_adam_step": ("few_shot_transformer_tts_torch/csrc/fused_adam.cu",
+                        "few_shot_transformer_tts_tpu/ops/fused_adam.py:88"),
 }
 
 
@@ -1313,7 +1741,9 @@ def kernel_line(name, row, err, launches, by_path):
 
 
 PHASES = ("kernel_check", "train_kernel_check", "decode_kernel_check",
-          "main_path", "main_path_fused", "cli", "train", "train_cli")
+          "dsp_kernel_check", "adam_kernel_check", "main_path",
+          "main_path_fused", "vocode", "cli", "train", "train_fused_adam",
+          "train_cli")
 
 
 def main():
@@ -1364,22 +1794,38 @@ def main():
         out["kernel_check"] = kernel_phase(args.seed)
     if "train_kernel_check" in phases:
         out["train_kernel_check"] = train_kernel_phase(args.seed)
-    if {"decode_kernel_check", "main_path", "main_path_fused",
+    if "dsp_kernel_check" in phases:
+        out["dsp"] = dsp_kernel_phase(args.seed)
+    if "adam_kernel_check" in phases:
+        out["adam"] = adam_kernel_phase(args.seed)
+    if {"decode_kernel_check", "main_path", "main_path_fused", "vocode",
             "cli"} & set(phases):
         hp = default_config()
         model = flagship_model(hp, args.seed, "cuda")
         batch = flagship_batch(hp, args.seed)
         if "decode_kernel_check" in phases:
             out["decode"] = decode_kernel_phase(model, hp, batch, args.seed)
+        synthesis = None
         if "main_path" in phases:
-            out["eager"] = main_path_phase(model, hp, batch, args.seed)
+            out["eager"], synthesis = main_path_phase(model, hp, batch,
+                                                      args.seed)
         if "main_path_fused" in phases:
             out["fused"] = main_path_fused_phase(model, hp, batch)
+        if "vocode" in phases:
+            synthesis = synthesis or synthesize_batch(
+                model, batch, hp, deterministic=True,
+                collect_alignments=False, max_frames=512)
+            vocode_phase(synthesis["mel_aft"],
+                         synthesis["generated_lengths"], hp)
         if "cli" in phases:
             cli_phase(model, args.out_dir)
         del model
+    train_sec = state = None
     if "train" in phases:
-        out["train"] = train_phase(args.seed)
+        out["train"], train_sec, state = train_phase(args.seed)
+    if "train_fused_adam" in phases:
+        out["train_fused_adam"] = train_fused_adam_phase(args.seed, state,
+                                                         train_sec)
     if "train_cli" in phases:
         train_cli_phase(args.out_dir, args.seed)
     if tuple(phases) != PHASES:
@@ -1391,7 +1837,9 @@ def main():
     paths = lambda name: {
         "synthesize_batch": out["eager"][name],
         "synthesize_batch_fused": out["fused"][name],
-        "train_10_steps": train[name]}
+        "train_10_steps": train[name],
+        "train_10_steps_fused_adam": out["train_fused_adam"][name],
+        "melspectrogram_batch": out["dsp"]["counts"][name]}
     dec = rows["decoder_causal"]
     emit({"kernels": [
         kernel_line("mha_forward", dec["forward"],
@@ -1410,6 +1858,16 @@ def main():
                     out["decode"][256]["max_abs_err"],
                     out["fused"]["decoder_frame_step"],
                     paths("decoder_frame_step")),
+        # feature extraction: one batched call at full width
+        kernel_line("fused_frame_mel", out["dsp"]["full"],
+                    out["dsp"]["full"]["max_abs_err"],
+                    out["dsp"]["counts"]["fused_frame_mel"],
+                    paths("fused_frame_mel")),
+        # use_fused_adam training: 37 leaves per step
+        kernel_line("fused_adam_step", out["adam"],
+                    out["adam"]["max_abs_err"],
+                    out["train_fused_adam"]["fused_adam_step"],
+                    paths("fused_adam_step")),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@ An own copy of ``few_shot_transformer_tts_tpu/config.py``: the same field
 names, defaults and ``k=v,...`` override grammar (ints, floats, bools, strings
 and ``[a,b,c]`` lists), so one ``--hparams`` string configures both packages.
 Fields that select TPU-only machinery (mesh axes, the PRNG implementation,
-the fused decode/Adam kernels) are kept so such strings still parse; the
-port reads only the ones its code paths use.
+remat) are kept so such strings still parse; the port reads only the ones
+its code paths use.
 
 ``use_pallas_attention`` selects the hand-written CUDA attention kernels
 (``ops/mha.py``, forward and backward) for the full-sequence attention path
@@ -13,8 +13,10 @@ on CUDA tensors; ``use_fused_layernorm`` the LayerNorm backward kernel
 (``ops/layernorm.py``); ``use_pallas_decode`` the fused decode step
 (``ops/decode.py``, one CUDA kernel per frame through every decoder layer)
 for deterministic synthesis without self-alignments, off by default as in
-the JAX package; ``wire_mel_int16`` the int16 host-to-device copy of the
-mel targets in training.
+the JAX package; ``use_fused_adam`` the one-pass Adam kernel
+(``ops/fused_adam.py``) for the large weight matrices in training, off by
+default as in the JAX package; ``wire_mel_int16`` the int16 host-to-device
+copy of the mel targets in training.
 ``use_external_embed=True`` is rejected: the reference declares it but no code
 path reads it.
 """

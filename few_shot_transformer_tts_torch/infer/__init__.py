@@ -1,3 +1,3 @@
 from .synthesize import (  # noqa: F401
-    prepare_decode_inputs, synthesize_batch, save_eval_results,
+    prepare_decode_inputs, synthesize_batch, save_eval_results, vocode_batch,
 )

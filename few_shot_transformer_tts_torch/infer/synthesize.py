@@ -271,6 +271,21 @@ def synthesize_batch(model: ByteToMel, batch: Dict[str, Any], hp: Config,
             "generated_lengths": list(target_lengths)}
 
 
+def vocode_batch(mel_aft, generated_lengths, hp: Config, device="cuda"):
+    """Batched Griffin-Lim on ``device`` (``ops/dsp_torch.py:mel2wav``):
+    one pass of ``hp.n_iter`` STFT round trips for the whole padded batch,
+    instead of the reference's per-sample CPU loop (reference
+    synthesize.py:82).  Returns per-sample float32 waveforms (numpy)
+    trimmed to (length - 1) * hop samples."""
+    from ..ops import dsp_torch
+    from ..utils.device import resolve_device
+    mel = torch.as_tensor(np.asarray(mel_aft, np.float32)).to(
+        resolve_device(device))
+    wavs = dsp_torch.mel2wav(mel, hp).cpu().numpy()
+    return [wavs[i][:max(0, int(n) - 1) * hp.hop_length]
+            for i, n in enumerate(generated_lengths)]
+
+
 def save_eval_results(names, mel_pre, mel_aft, alignments, input_lengths,
                       generated_lengths, output_dir, hp: Config,
                       save_trimmed_wave: bool = False):

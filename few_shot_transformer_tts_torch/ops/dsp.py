@@ -1,11 +1,15 @@
-"""Audio DSP for synthesis output: mel -> Griffin-Lim waveform, wav writing
-and silence trimming (numpy).
+"""Audio DSP in numpy: mel extraction, mel -> Griffin-Lim waveform, wav
+writing and silence trimming.
 
-Own copy of the parts of ``few_shot_transformer_tts_tpu/ops/dsp.py`` that
-``save_eval_results`` uses, with librosa-0.6 semantics (reference
-utils/audio.py:56-115): denormalize -> dB to amplitude -> pinv mel basis ->
-Griffin-Lim (60 iterations, power 1.5, periodic Hann, center/reflect STFT)
--> de-emphasis.  Runs on the CPU; a batched GPU Griffin-Lim is later work.
+Own copy of ``few_shot_transformer_tts_tpu/ops/dsp.py`` with librosa-0.6
+semantics (reference utils/audio.py:17-115).  Extraction: pre-emphasis ->
+center/reflect STFT with a periodic Hann window -> magnitude -> Slaney mel
+-> dB -> [-4, 4] (``get_spectrograms``).  Inversion: denormalize -> dB to
+amplitude -> pinv mel basis -> Griffin-Lim (60 iterations, power 1.5) ->
+de-emphasis (``mel2wav``).  This is the float64 golden reference of the
+batched torch DSP in ``ops/dsp_torch.py`` and of the ``fused_frame_mel``
+kernel (``ops/mel.py``); ``save_eval_results`` uses ``mel2wav`` per sample
+on the CPU.
 """
 
 from __future__ import annotations
@@ -139,7 +143,7 @@ def istft(stft_matrix: np.ndarray, hop_length: int, win_length: int,
 
 
 # ---------------------------------------------------------------------------
-# mel inversion (reference utils/audio.py:56-92)
+# mel extraction and inversion (reference utils/audio.py:17-92)
 # ---------------------------------------------------------------------------
 
 _mel_basis_cache = {}
@@ -153,16 +157,40 @@ def get_mel_basis(hp: Config) -> np.ndarray:
     return _mel_basis_cache[key]
 
 
+def preemphasis(y: np.ndarray, coef: float) -> np.ndarray:
+    """y[0], y[1:] - coef * y[:-1]."""
+    return np.append(y[0], y[1:] - coef * y[:-1])
+
+
 def deemphasis(y: np.ndarray, coef: float) -> np.ndarray:
     """Inverse of preemphasis: IIR filter 1/(1 - coef z^-1)."""
     from scipy.signal import lfilter
     return lfilter([1.0], [1.0, -coef], np.asarray(y, dtype=np.float64))
 
 
+def normalize_mel_db(mel_db: np.ndarray, hp: Config) -> np.ndarray:
+    """dB -> [1e-8, 1], then [-max_abs, max_abs] when symmetric."""
+    mel = np.clip((mel_db - hp.ref_db + hp.max_db) / hp.max_db, 1e-8, 1)
+    if hp.symmetric_mel:
+        mel = mel * hp.max_abs_value * 2 - hp.max_abs_value
+    return mel
+
+
 def denormalize_mel(mel: np.ndarray, hp: Config) -> np.ndarray:
     if hp.symmetric_mel:
         mel = (mel + hp.max_abs_value) / (2 * hp.max_abs_value)
     return (np.clip(mel, 0, 1) * hp.max_db) - hp.max_db + hp.ref_db
+
+
+def get_spectrograms(wav: np.ndarray, hp: Config) -> np.ndarray:
+    """wav (normalized, trimmed) -> normalized mel, shape (T, n_mels)
+    float32 (reference utils/audio.py:17-54)."""
+    y = preemphasis(np.asarray(wav, dtype=np.float64), hp.preemphasis)
+    linear = stft(y, hp.n_fft, hp.hop_length, hp.win_length)
+    mag = np.abs(linear)                       # (1 + n_fft//2, T)
+    mel = np.dot(get_mel_basis(hp), mag)       # (n_mels, T)
+    mel = 20 * np.log10(np.maximum(1e-5, mel))
+    return normalize_mel_db(mel, hp).T.astype(np.float32)
 
 
 def mel_to_linear(mel: np.ndarray, hp: Config) -> np.ndarray:

@@ -1,0 +1,169 @@
+"""The fused STFT -> mel kernel; counterpart of
+``few_shot_transformer_tts_tpu/ops/mel_pallas.py`` (``fused_frame_mel``).
+
+One pass from the pre-emphasised signal to the normalised mel:
+
+  windowed frames @ cos / sin (fp32) -> magnitude -> rounded to bf16
+  -> @ mel weights (bf16 values, fp32 sums) -> 20 log10(max(1e-5, .))
+  -> clip-normalise -> [-4, 4]
+
+The DFT stays fp32 (no TF32, no tensor cores): quiet bins come from
+near-total cancellation of large terms.  The bf16 rounding of the magnitude
+and of the mel weights is part of the function, as in the TPU kernel.
+
+``fused_frame_mel(y, hp)`` takes the signal: for CUDA tensors it launches
+``csrc/frame_mel.cu``, which reads the reflect-padded signal and applies
+the window itself (the [BT, n_fft] frames and the [BT, F] magnitude never
+reach device memory), over the window's nonzero taps only; for CPU tensors
+it frames in PyTorch and takes ``fused_frame_mel_plain``, the same math on
+windowed frames (also what the tests and ``chip_smoke.py`` hold the kernel
+against).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import Config
+from . import cuda_build, dsp
+from .dsp_torch import device_constant, frame_signal, normalize_db, window
+
+FRAME_TILE = 64       # frames per block of the kernel
+FREQ_TILE = 64        # frequencies per tile; the tables are padded to it
+_MAX_MELS = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@functools.lru_cache(maxsize=4)
+def _mats(sr: int, n_fft: int, n_mels: int):
+    n_freqs = 1 + n_fft // 2
+    f_pad = _round_up(n_freqs, FREQ_TILE)
+    k = np.arange(n_fft)[:, None]
+    f = np.arange(f_pad)[None, :]
+    ang = -2.0 * np.pi * k * f / n_fft
+    cos, sin = np.cos(ang), np.sin(ang)
+    cos[:, n_freqs:] = 0.0
+    sin[:, n_freqs:] = 0.0
+    mel_w = np.zeros((f_pad, n_mels))
+    mel_w[:n_freqs] = dsp.mel_filterbank(sr, n_fft, n_mels).T
+    return (cos.astype(np.float32), sin.astype(np.float32),
+            mel_w.astype(np.float32))
+
+
+def dft_mel_mats(hp: Config):
+    """(cos [n_fft, Fpad], sin [n_fft, Fpad], mel weights [Fpad, n_mels]),
+    float32 numpy built in float64 as the TPU kernel's ``_dft_mel_mats``;
+    Fpad is 1 + n_fft // 2 rounded up to FREQ_TILE, the padding zero."""
+    return _mats(hp.sr, hp.n_fft, hp.num_mels)
+
+
+def _taps(hp: Config):
+    """(first, count) of the window's nonzero taps."""
+    nz = np.flatnonzero(dsp._padded_window(hp.win_length, hp.n_fft))
+    return int(nz[0]), int(nz[-1] + 1 - nz[0])
+
+
+def _on_device(hp: Config, device) -> dict:
+    """The tables on ``device`` (each copied once): cos/sin fp32, mel
+    weights bf16, and the kernel's slices over the nonzero taps."""
+    key = (hp.sr, hp.n_fft, hp.num_mels, hp.win_length)
+    first, count = _taps(hp)
+    mats = lambda i: (lambda: dft_mel_mats(hp)[i])
+    taps = lambda i: (lambda: dft_mel_mats(hp)[i][first:first + count])
+    return {
+        "cos": device_constant(("dft_cos",) + key, mats(0), device),
+        "sin": device_constant(("dft_sin",) + key, mats(1), device),
+        "mel_w": device_constant(("dft_mel_w",) + key, mats(2), device,
+                                 torch.bfloat16),
+        "cos_taps": device_constant(("dft_cos_taps",) + key, taps(0), device),
+        "sin_taps": device_constant(("dft_sin_taps",) + key, taps(1),
+                                    device),
+        "win_taps": device_constant(
+            ("win_taps",) + key, lambda: dsp._padded_window(
+                hp.win_length, hp.n_fft)[first:first + count], device),
+        "first": first, "count": count}
+
+
+def windowed_frames(y: torch.Tensor, hp: Config) -> torch.Tensor:
+    """Signal [..., L] -> windowed frames [..., T, n_fft] fp32 (the TPU
+    kernel's input)."""
+    return frame_signal(y.float(), hp.n_fft, hp.hop_length) * \
+        window(hp, y.device)
+
+
+def fused_frame_mel_plain(frames: torch.Tensor, hp: Config) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: windowed frames [..., n_fft]
+    fp32 -> normalised mel [..., n_mels], with the TPU kernel's rounding
+    points (fp32 DFT; magnitude and mel weights rounded to bf16, whose
+    products are exact in fp32, summed in fp32)."""
+    m = _on_device(hp, frames.device)
+    re = frames @ m["cos"]
+    im = frames @ m["sin"]
+    mag = torch.sqrt(re * re + im * im)
+    mel = mag.to(torch.bfloat16).float() @ m["mel_w"].float()
+    return normalize_db(mel, hp)
+
+
+def fused_frame_mel(y: torch.Tensor, hp: Config) -> torch.Tensor:
+    """Pre-emphasised signal [..., L] -> normalised mel [..., T, n_mels],
+    T = 1 + L // hop.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if y.device.type == "cpu":
+        return fused_frame_mel_plain(windowed_frames(y, hp), hp)
+    if y.device.type != "cuda":
+        raise ValueError("fused_frame_mel runs on CPU or CUDA tensors, not "
+                         "%s" % y.device)
+    if not 1 <= hp.num_mels <= _MAX_MELS:
+        raise ValueError("the kernel takes 1 to %d mels, got %d"
+                         % (_MAX_MELS, hp.num_mels))
+    length = y.shape[-1]
+    half = hp.n_fft // 2
+    if length <= half:
+        raise ValueError("reflect padding by %d needs more than %d samples, "
+                         "got %d" % (half, half, length))
+    rows = y.reshape(-1, length).float()
+    padded = F.pad(rows, (half, half), mode="reflect").contiguous()
+    n_frames = 1 + (padded.shape[1] - hp.n_fft) // hp.hop_length
+    m = _on_device(hp, y.device)
+    out = torch.empty((rows.shape[0], n_frames, hp.num_mels),
+                      dtype=torch.float32, device=y.device)
+    if rows.shape[0]:
+        lib = _library()
+        err = lib.frame_mel(
+            padded.data_ptr() + 4 * m["first"], rows.shape[0],
+            padded.shape[1], n_frames, hp.hop_length,
+            m["win_taps"].data_ptr(), m["count"], m["cos_taps"].data_ptr(),
+            m["sin_taps"].data_ptr(), m["cos"].shape[1],
+            m["mel_w"].data_ptr(), hp.num_mels, float(hp.ref_db),
+            float(hp.max_db), float(hp.max_abs_value),
+            int(bool(hp.symmetric_mel)), out.data_ptr(),
+            torch.cuda.current_stream(y.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError("frame_mel launch failed: %s"
+                               % lib.frame_mel_error_string(err).decode())
+        fused_frame_mel.launches += 1
+    return out.reshape(y.shape[:-1] + (n_frames, hp.num_mels))
+
+
+# Kernel launches since the count was last reset (chip_smoke.py reads it).
+fused_frame_mel.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("frame_mel")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.frame_mel.argtypes = [p, i, ctypes.c_longlong, i, i, p, i, p, p, i,
+                              p, i, f, f, f, i, p, p]
+    lib.frame_mel.restype = i
+    lib.frame_mel_error_string.argtypes = [i]
+    lib.frame_mel_error_string.restype = ctypes.c_char_p
+    return lib

@@ -3,7 +3,8 @@
 Counterpart of ``few_shot_transformer_tts_tpu/train/loop.py`` (reference
 train.py:25-249) for one process on one device.  The step is eager PyTorch:
 forward with dropout, ``compute_loss``, backward (through the attention and
-LayerNorm backward kernels on the card), an Adam step, and the BatchNorm
+LayerNorm backward kernels on the card), an Adam step (with
+``hp.use_fused_adam``, through the fused Adam kernel), and the BatchNorm
 running statistics (updated in the forward).  The host loop keeps the
 reference's cadence: windowed sec/step and loss logging, scalars every
 summary_interval, checkpoint + feeder state every checkpoint_interval, inline
@@ -49,12 +50,20 @@ _SCALAR_KEYS = ("loss", "bef_loss", "aft_loss", "mse_loss", "l2",
 def make_optimizer(model: torch.nn.Module, hp: Config):
     """Adam(eps=5e-8) with the reference LR schedule (reference
     train.py:130-131, tacotron.py:176-179) as a LambdaLR: the LR of a step
-    is the schedule at the pre-increment count.  Adam takes its foreach
-    path (the fused Adam kernel is not ported yet)."""
-    optimizer = torch.optim.Adam(
-        model.parameters(), lr=hp.max_lr, betas=(hp.adam_beta1,
-                                                 hp.adam_beta2),
-        eps=hp.adam_eps, foreach=True)
+    is the schedule at the pre-increment count.  ``hp.use_fused_adam``
+    selects ``ops/fused_adam.py:FusedAdam`` (the ``fused_adam_step``
+    kernel on the leaves the JAX package routes to it, as its
+    ``make_train_step`` does for replicated state, which is the port's only
+    kind); otherwise ``torch.optim.Adam`` takes its foreach path.  Both
+    keep one state-dict layout, so checkpoints move between them."""
+    kw = dict(lr=hp.max_lr, betas=(hp.adam_beta1, hp.adam_beta2),
+              eps=hp.adam_eps)
+    if hp.use_fused_adam:
+        from ..ops.fused_adam import FusedAdam, kernel_leaf_params
+        optimizer = FusedAdam(model.parameters(),
+                              kernel_params=kernel_leaf_params(model), **kw)
+    else:
+        optimizer = torch.optim.Adam(model.parameters(), foreach=True, **kw)
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda s: lr_factor(s, hp))
     return optimizer, scheduler

@@ -60,7 +60,8 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "_loaded", {})
     sources = cuda_build.sources()
     assert sources == sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
-    assert {"mha_fwd", "mha_bwd", "layernorm_bwd"} <= set(sources)
+    assert {"mha_fwd", "mha_bwd", "layernorm_bwd", "decoder_step",
+            "frame_mel", "fused_adam"} <= set(sources)
     for name in sources:
         with pytest.raises(RuntimeError, match="nvcc was not found"):
             cuda_build.load(name)
