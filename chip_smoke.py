@@ -14,18 +14,21 @@ uncaught exception and a non-zero exit):
   3. kernel_check: the CUDA attention forward against its plain PyTorch
      version on the card, bf16, at the three flagship synthesis call shapes
      (encoder self-attention, decoder causal, cross-attention, B=8) and edge
-     shapes (Tk = 2048, Tq = 600, Tk not a multiple of the 32-key tile),
+     shapes (Tk = 2048, Tq = 600, Tk not a multiple of the 64-key tile),
      plus one fp32 case.  Max abs error of o and lse against the stated
      tolerances; kernel, plain and scaled_dot_product_attention times (CUDA
      events, warm L2 as on the main path, where the projection has just
-     written q/k/v) beside the byte/FLOP bound.
+     written q/k/v) beside the byte/FLOP bound, the kernel's time over
+     SDPA's (ms_over_library) and the bound's share of it (bound_share).
   4. train_kernel_check: the training kernels against their plain versions
      at the three flagship train shapes (B=16, T_in=192, T_out=448), bf16,
-     plus an fp32 case and edge cases (causal Tq=600, Tk=77): mha_forward at
-     dropout 0.1 (same seed, so the same mask), mha_backward at rate 0 and
-     0.1 (dq, dk, dv), layer_norm_backward at 3072x512 and 7168x768.  Each
-     row: error against tolerance, kernel / plain / library ms, bound ms and
-     what binds it, launches per train step.
+     plus an fp32 case and edge cases (causal Tq=600, Tk=77, a causal D=64
+     T=77, and one 50-key tile held at TOL_L2): mha_forward at dropout 0.1
+     (same seed, so the same mask), mha_backward at rate 0 and 0.1 (dq, dk,
+     dv; a second call must give the same bits), layer_norm_backward at
+     3072x512 and 7168x768.  Each row: error against tolerance, kernel /
+     plain / library ms, bound ms and what binds it, ms_over_library,
+     bound_share, launches per train step.
   5. decode_kernel_check: the fused decode step (csrc/decoder_step.cu)
      against its plain PyTorch version on the card at the flagship synthesis
      shape (6 layers, C=768, 8 heads, B=8, bf16, the flagship model's
@@ -163,6 +166,17 @@ TRAIN_RATE = 0.1              # hp.transformer_dropout_rate
 # boundary (the summation orders differ) moves one term by an ulp; 2e-2 is
 # about 5 ulps of the largest gradient.  fp32: summation order only.
 TOL_TRAIN = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# bf16 attention kernels against their plain versions in relative L2 over
+# the whole output, which sees a rounding point that the max error above
+# does not.  Both round q*scale, p, g, do/keep and ds*scale to bf16 at the
+# same points, so outputs differ only where an fp32 sum in another order
+# lands across a bf16 boundary: on the H100 the backward read l2 <= 1.9e-4
+# in every case, and o <= 2.3e-5 where all keys fit one 64-key tile (with
+# more tiles the kernel rounds p at a running max that the plain version
+# does not see, and o reads ~1e-3).  Kernel mutants: p truncated instead
+# of rounded before P.V read 1.5e-3 on the one-tile o, dss truncated read
+# 4.6e-3 on dq in every case.
+TOL_L2 = {"o_one_tile": 2e-4, "grad": 1e-3}
 # LayerNorm backward: dx as above; dgamma/dbeta are fp32 column sums over
 # thousands of rows, in another order than the plain version's.
 TOL_LN = {torch.bfloat16: {"dx": 2e-2, "dgamma": 1e-3, "dbeta": 1e-3},
@@ -253,6 +267,30 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def kernel_split_ms(fn, iters=10):
+    """Device ms per call of each kernel that fn launches (torch.profiler),
+    by the kernel's name up to its template arguments."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("<")[0].split("::")[-1]:
+            e.self_device_time_total / 1e3 / iters
+            for e in device_kernels(prof)[0]}
+
+
+def timings(ms, plain_ms, library_ms, bound_ms):
+    """A kernel row's times: kernel, plain and library ms, the bound, the
+    kernel's time over the library call's and the bound's share of it."""
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "ms_over_library": ms / library_ms if library_ms else None,
+            "bound_share": bound_ms / ms}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -304,6 +342,7 @@ def check_kernel(name, rng, b, tq, tk, c, heads, causal, lengths,
     torch.cuda.synchronize()
     err_o = (o.float() - o_ref.float()).abs().max().item()
     err_lse = (lse - lse_ref).abs().max().item()
+    l2_o = l2_err(o, o_ref)
     tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_FP32
     ok = err_o <= tol["o"] and err_lse <= tol["lse"] and \
         bool(torch.isfinite(o).all())
@@ -323,10 +362,9 @@ def check_kernel(name, rng, b, tq, tk, c, heads, causal, lengths,
            "B": b, "Tq": tq, "Tk": tk, "C": c, "H": heads,
            "causal": causal, "bias": use_bias,
            "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
-           "tol_o": tol["o"], "tol_lse": tol["lse"], "ok": ok,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "flops": flops}
+           "l2_err_o": l2_o, "tol_o": tol["o"], "tol_lse": tol["lse"],
+           "ok": ok, **timings(ms, plain_ms, library_ms, bound_ms),
+           "bound_by": bound_by, "bytes": nbytes, "flops": flops}
     emit(row)
     if not ok:
         raise AssertionError("mha_forward disagrees with its plain version "
@@ -409,8 +447,8 @@ def sdpa_leaves(q, k, v, bias, heads, dtype):
 def check_train_attention(name, rng, b, tq, tk, c, heads, causal, lengths,
                           launches_per_step, cross=False,
                           dtype=torch.bfloat16, iters=20):
-    """mha_forward at dropout 0.1 and mha_backward at rates 0 and 0.1
-    against the plain versions with the same seed (so the same mask)."""
+    """mha_forward and mha_backward at rates 0.1 and 0 against the plain
+    versions with the same seed (so the same mask)."""
     q, k, v, bias = attention_inputs(rng, b, tq, tk, c, cross, lengths,
                                      dtype)
     use_bias = bias is not None
@@ -425,34 +463,40 @@ def check_train_attention(name, rng, b, tq, tk, c, heads, causal, lengths,
     qh, kh, vh, mask = sdpa_leaves(q, k, v, bias, heads, dtype)
     rows = {}
 
-    o, lse = mha_forward(*args, rate=TRAIN_RATE, seed=seed)
-    o_ref, lse_ref = mha_forward_plain(*args, TRAIN_RATE, seed)
-    torch.cuda.synchronize()
-    err_o = rel_err(o, o_ref)
-    err_lse = (lse - lse_ref).abs().max().item()
     bound_ms, bound_by, nbytes, flops = attention_bound(
         b, tq, tk, c, heads, causal, use_bias, dtype)
-    row = dict(shape, phase="train_kernel_check", kernel="mha_forward",
-               rate=TRAIN_RATE, rel_err_o=err_o,
-               max_abs_err_o=abs_err(o, o_ref), max_abs_err_lse=err_lse,
-               tol_o=tol, tol_lse=TOL_BF16["lse"],
-               kept_share=dropout_keep_mask(seed, b, heads, tq, tk,
-                                            TRAIN_RATE).float().mean().item(),
-               ms=cuda_ms(lambda: mha_forward(*args, rate=TRAIN_RATE,
-                                              seed=seed), iters),
-               plain_ms=cuda_ms(lambda: mha_forward_plain(
-                   *args, TRAIN_RATE, seed), max(iters // 5, 3)),
-               library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                   qh, kh, vh, attn_mask=mask, is_causal=causal,
-                   scale=scale, dropout_p=TRAIN_RATE), iters),
-               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-               flops=flops)
-    row["ok"] = err_o <= tol and err_lse <= TOL_BF16["lse"]
-    emit(row)
-    rows["forward"] = row
-    if not row["ok"]:
-        raise AssertionError("mha_forward (dropout) disagrees with its plain "
-                             "version at %s: %s" % (name, row))
+    for rate in (TRAIN_RATE, 0.0):
+        o, lse = mha_forward(*args, rate=rate, seed=seed)
+        o_ref, lse_ref = mha_forward_plain(*args, rate, seed)
+        torch.cuda.synchronize()
+        err_o = rel_err(o, o_ref)
+        err_lse = (lse - lse_ref).abs().max().item()
+        row = dict(shape, phase="train_kernel_check", kernel="mha_forward",
+                   rate=rate, rel_err_o=err_o,
+                   max_abs_err_o=abs_err(o, o_ref), max_abs_err_lse=err_lse,
+                   l2_err_o=l2_err(o, o_ref), tol_o=tol,
+                   tol_lse=TOL_BF16["lse"],
+                   kept_share=dropout_keep_mask(
+                       seed, b, heads, tq, tk, rate).float().mean().item(),
+                   **timings(
+                       cuda_ms(lambda: mha_forward(*args, rate=rate,
+                                                   seed=seed), iters),
+                       cuda_ms(lambda: mha_forward_plain(*args, rate, seed),
+                               max(iters // 5, 3)),
+                       cuda_ms(lambda: F.scaled_dot_product_attention(
+                           qh, kh, vh, attn_mask=mask, is_causal=causal,
+                           scale=scale, dropout_p=rate), iters),
+                       bound_ms),
+                   bound_by=bound_by, bytes=nbytes, flops=flops)
+        row["tol_l2_o"] = TOL_L2["o_one_tile"] \
+            if dtype == torch.bfloat16 and tk <= 64 else None
+        row["ok"] = err_o <= tol and err_lse <= TOL_BF16["lse"] and \
+            (row["tol_l2_o"] is None or row["l2_err_o"] <= row["tol_l2_o"])
+        emit(row)
+        rows["forward" if rate else "forward_0"] = row
+        if not row["ok"]:
+            raise AssertionError("mha_forward disagrees with its plain "
+                                 "version at %s: %s" % (name, row))
 
     for rate in (0.0, TRAIN_RATE):
         o, lse = mha_forward(*args, rate=rate, seed=seed)
@@ -460,12 +504,18 @@ def check_train_attention(name, rng, b, tq, tk, c, heads, causal, lengths,
         bargs = (q, k, v, bias, seed, o, lse, do, heads, causal, scale,
                  use_bias, rate)
         got = mha_backward(*bargs)
+        again = mha_backward(*bargs)
         want = mha_backward_plain(*bargs)
         torch.cuda.synchronize()
+        names = ("dq", "dk", "dv")
         errs = {"rel_err_" + n: rel_err(g, w)
-                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+                for n, g, w in zip(names, got, want)}
         abs_errs = {"max_abs_err_" + n: abs_err(g, w)
-                    for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+                    for n, g, w in zip(names, got, want)}
+        l2_errs = {"l2_err_" + n: l2_err(g, w)
+                   for n, g, w in zip(names, got, want)}
+        # no atomics: the same inputs give the same bits
+        repeat = all(torch.equal(g, x) for g, x in zip(got, again))
         out = F.scaled_dot_product_attention(
             qh, kh, vh, attn_mask=mask, is_causal=causal, scale=scale,
             dropout_p=rate)
@@ -473,18 +523,24 @@ def check_train_attention(name, rng, b, tq, tk, c, heads, causal, lengths,
         bound_ms, bound_by, nbytes, flops = mha_backward_bound(
             b, tq, tk, c, heads, causal, use_bias, dtype)
         row = dict(shape, phase="train_kernel_check", kernel="mha_backward",
-                   rate=rate, tol=tol, **errs, **abs_errs,
+                   rate=rate, tol=tol, **errs, **abs_errs, **l2_errs,
                    **{"max_abs_" + n: w.float().abs().max().item()
-                      for n, w in zip(("dq", "dk", "dv"), want)},
-                   ms=cuda_ms(lambda: mha_backward(*bargs), iters),
-                   plain_ms=cuda_ms(lambda: mha_backward_plain(*bargs),
-                                    max(iters // 5, 3)),
-                   library_ms=cuda_ms(lambda: torch.autograd.grad(
-                       out, (qh, kh, vh), doh, retain_graph=True), iters),
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                   flops=flops)
-        row["ok"] = max(errs.values()) <= tol and \
-            all(bool(torch.isfinite(g).all()) for g in got)
+                      for n, w in zip(names, want)},
+                   repeat_bit_identical=repeat,
+                   kernels_ms=kernel_split_ms(lambda: mha_backward(*bargs)),
+                   **timings(
+                       cuda_ms(lambda: mha_backward(*bargs), iters),
+                       cuda_ms(lambda: mha_backward_plain(*bargs),
+                               max(iters // 5, 3)),
+                       cuda_ms(lambda: torch.autograd.grad(
+                           out, (qh, kh, vh), doh, retain_graph=True),
+                           iters),
+                       bound_ms),
+                   bound_by=bound_by, bytes=nbytes, flops=flops)
+        row["tol_l2"] = TOL_L2["grad"] if dtype == torch.bfloat16 else None
+        row["ok"] = max(errs.values()) <= tol and repeat and \
+            (row["tol_l2"] is None or max(l2_errs.values()) <= row["tol_l2"]) \
+            and all(bool(torch.isfinite(g).all()) for g in got)
         emit(row)
         rows["backward_%g" % rate] = row
         if not row["ok"]:
@@ -520,15 +576,15 @@ def check_layernorm(name, rng, n, c, launches_per_step,
            "max_abs_err_dx": abs_err(got[0], want[0]),
            "max_abs_dx": want[0].float().abs().max().item(),
            **{"tol_" + k: v for k, v in tol.items()},
-           "ms": cuda_ms(lambda: layer_norm_backward(x, gamma, dy), iters),
-           "plain_ms": cuda_ms(lambda: layer_norm_backward_plain(
-               x, gamma, dy), max(iters // 5, 3)),
-           "library_ms": cuda_ms(
-               lambda: torch.ops.aten.native_layer_norm_backward(
+           **timings(
+               cuda_ms(lambda: layer_norm_backward(x, gamma, dy), iters),
+               cuda_ms(lambda: layer_norm_backward_plain(x, gamma, dy),
+                       max(iters // 5, 3)),
+               cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
                    dy, x, [c], mean, rstd, gamma.to(dtype), beta.to(dtype),
                    [True, True, True]), iters),
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "flops": flops}
+               bound_ms),
+           "bound_by": bound_by, "bytes": nbytes, "flops": flops}
     row["ok"] = all(errs[k] <= tol[k] for k in errs) and \
         all(bool(torch.isfinite(g).all()) for g in got)
     emit(row)
@@ -555,6 +611,13 @@ def train_kernel_phase(seed):
                           True, None, 0, iters=5)
     check_train_attention("train_tk77_cross", rng, 3, 45, 77, 768, 8, False,
                           [77, 50, 1], 0, cross=True, iters=5)
+    # head dim 64, causal, T ragged against the 64-row tiles
+    check_train_attention("train_t77_causal_d64", rng, 3, 77, 77, 512, 8,
+                          True, None, 0, iters=5)
+    # one key tile: the forward's running max is the final one, so its p
+    # rounds as the plain version's does and o is held at TOL_L2
+    check_train_attention("train_tk50_one_tile", rng, 4, 45, 50, 768, 8,
+                          False, [50, 31, 1, 50], 0, cross=True, iters=5)
     check_train_attention("train_encoder_fp32", rng, 16, 192, 192, 512, 8,
                           False, enc_len, 0, dtype=torch.float32, iters=5)
     rows["ln_encoder"] = check_layernorm("ln_encoder", rng, 16 * 192, 512,
@@ -1186,8 +1249,14 @@ def train_profile(model, optimizer, scheduler, batch, hp, seed, step,
         torch.cuda.synchronize()
     kernels, ranges = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the attention kernels of csrc/mha_fwd.cu and csrc/mha_bwd.cu
+    attention_ms = sum(e.self_device_time_total for e in kernels
+                       if "mha_fwd" in e.key or "mha_bwd" in e.key) / 1e3
     return {"phase": phase, "wall_ms_unprofiled": wall_ms,
             "device_busy_ms": busy_ms if kernels else None,
+            "attention_device_ms": attention_ms,
+            "attention_share_of_busy": attention_ms / busy_ms if busy_ms
+            else None,
             "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": top_events(kernels, 10),

@@ -17,30 +17,36 @@
 // "round" is a cast to the input type, at the TPU kernel's rounding points.
 // The bias gets no gradient.
 //
-// Design.  The TPU kernel keeps the whole K in VMEM and accumulates dk/dv in
-// its output block across sequential q tiles; Hopper blocks run in parallel
-// and in no order, so here two kernels split the work with no atomics (the
-// sums are deterministic):
-//   * mha_bwd_dq: grid (ceil(Tq/32), H, B), the forward's layout.  A block
-//     owns 32 query rows, computes delta for them (and writes it for the
-//     second kernel), then streams 32-key tiles of K/V (causal: up to its
-//     last visible key).  Lane j owns key j of the tile for the 4 rows of
-//     its warp (scores, do.v^T, ds); dq accumulates in registers, lane j
-//     holding dims j, j+32 (, j+64).
-//   * mha_bwd_dkdv: grid (ceil(Tk/32), H, B).  A block owns 32 keys, warp w
-//     the 4 keys 4w..4w+3, and streams 32-query tiles (causal: from its own
-//     first key on).  Lane j owns query j of the tile; one Philox call gives
-//     the mask words of the warp's 4 keys for that query.  dk and dv
-//     accumulate in registers over all query tiles.
-// Both run after one another on the stream; dq's delta is the second's input.
-// Scalar fp32 FMA from shared memory (dynamic, above 48 KB at D=96); tensor
-// cores (mma/wgmma) and TMA are later work.
-//
 // Bound.  Reads q, k, v, o, do, lse (and bias) once and writes dq, dk, dv:
 // at the decoder's causal shape (B=16, T=448, C=768, bf16) about 88 MB, 26 us
 // at 3.35 TB/s, against five products (s, do.v^T, dv, dq, dk) over the
 // causal half = 12.4 GFLOP, 12.5 us at 989 TFLOP/s -- bytes bound it.
-// PERF.md holds the measured times.
+//
+// Design.  The TPU kernel keeps the whole K in VMEM and accumulates dk/dv in
+// its output block across sequential q tiles; Hopper blocks run in parallel
+// and in no order, so two kernels split the work with no atomics (the sums
+// are deterministic: the same inputs give the same bits), each recomputing
+// S and P (seven products instead of five):
+//   * dq: grid (ceil(Tq/64), H, B), the forward's layout.  A block owns 64
+//     query rows (4 warps of 16), computes delta for them (and writes it for
+//     the second kernel), then streams 64-key tiles of K/V (causal: up to
+//     its last visible key).
+//   * dk/dv: grid (ceil(Tk/64), H, B).  A block owns 64 keys (4 warps of
+//     16) and streams 64-query tiles of q, do, lse and delta (causal: from
+//     its own first key on), with dk and dv in fp32 registers.
+// bf16 (mha_bwd_dq_tc, mha_bwd_dkdv_tc) runs every product on the tensor
+// cores (mma.sync m16n8k16, tensor_core.cuh) from shared-memory tiles that
+// a two-stage 16-byte cp.async ring fills one tile ahead; the score, dP and
+// ds rectangles live in accumulator fragments, and g and dss, rounded to
+// bf16 at the TPU kernel's points, become the A operands of the dq, dv and
+// dk products in registers.  The dk/dv kernel holds its rectangles
+// transposed (keys down, queries across), so its lanes draw the Philox
+// blocks of the keys they hold and trade words in pairs of lanes
+// (philox::tile_drop_bits_t); both kernels draw a tile's mask while its
+// copy is in flight.
+// fp32 keeps the scalar kernels (mha_bwd_dq_fp32, mha_bwd_dkdv_fp32; the
+// tensor cores would need TF32): 32-row blocks and tiles, FMA from shared
+// memory.
 //
 // Interface: a plain C entry, built by nvcc into a shared library and loaded
 // with ctypes (few_shot_transformer_tts_torch/ops/cuda_build.py).  It
@@ -53,40 +59,12 @@
 #include <math.h>
 
 #include "philox.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBlock = kWarps * kRowsPerWarp;  // rows (queries or keys)
-constexpr int kTile = 32;                      // streamed tile (keys or queries)
 constexpr float kNegInf = -1e20f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
   const void* q;
@@ -109,6 +87,485 @@ struct Args {
   float inv_keep;
 };
 
+// sum of the eight products of two 16-byte bf16 vectors, in fp32
+__device__ __forceinline__ float dot_bf16x8(uint4 x, uint4 y) {
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(&x);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&y);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = tc::unpack_bf16(u[i]), b = tc::unpack_bf16(w[i]);
+    sum += a.x * b.x;
+    sum += a.y * b.y;
+  }
+  return sum;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;  // 4 warps of 16 rows
+constexpr int kTcBlock = 64;     // rows a block owns (queries or keys)
+constexpr int kTcTile = 64;      // streamed tile (keys or queries)
+
+template <int D>
+constexpr int dq_tc_smem_bytes() {
+  // qs, do [64][D+8]; k and v in two stages [2][2][64][D+8]; bias [2][64];
+  // delta [64]
+  return (2 * kTcBlock + 4 * kTcTile) * (D + 8) * 2 +
+         (2 * kTcTile + kTcBlock) * 4;
+}
+
+template <int D>
+constexpr int dkdv_tc_smem_bytes() {
+  // k, v [64][D+8]; q and do in two stages [2][2][64][D+8]; qs and do/keep
+  // [2][64][D+8]; lse and delta in two stages [2][2][64]
+  return (2 * kTcBlock + 6 * kTcTile) * (D + 8) * 2 + 4 * kTcTile * 4;
+}
+
+// dq (and delta): a block owns 64 query rows of one (batch, head)
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
+  constexpr int S = D + 8;
+  constexpr int kChunks = D / 8;
+  constexpr int kSteps = D / 16;
+  constexpr int kTiles = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* qs_s = reinterpret_cast<bf16*>(smem_tc);
+  bf16* do_s = qs_s + kTcBlock * S;
+  bf16* kv_s = do_s + kTcBlock * S;  // stage st: k at st*2*64*S, v after it
+  float* bias_s = reinterpret_cast<float*>(kv_s + 4 * kTcTile * S);
+  float* delta_s = bias_s + 2 * kTcTile;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTcBlock, h = blockIdx.y, b = blockIdx.z;
+  const int tq = a.tq, tk = a.tk, H = a.num_heads;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * D;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * D;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * D;
+  const bf16* ob = static_cast<const bf16*>(a.o) + b * a.o_sb + h * D;
+  const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * D;
+  const float* biasb = a.bias + static_cast<long long>(b) * tk;
+  const int k_end = a.causal ? min(tk, q0 + kTcBlock) : tk;
+  const int n_tiles = (k_end + kTcTile - 1) / kTcTile;
+
+  auto load_tile = [&](int k0, int st) {
+    bf16* ks = kv_s + st * 2 * kTcTile * S;
+    bf16* vs = ks + kTcTile * S;
+    for (int c = tid; c < kTcTile * kChunks; c += kTcThreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 8, kj = k0 + r;
+      const bool in = kj < tk;
+      const long long row = in ? kj : 0;
+      tc::cp_async16(ks + r * S + col, kb + row * a.k_sr + col, in);
+      tc::cp_async16(vs + r * S + col, vb + row * a.v_sr + col, in);
+    }
+    if (a.use_bias && tid < kTcTile) {
+      const int kj = k0 + tid;
+      tc::cp_async4(bias_s + st * kTcTile + tid, biasb + (kj < tk ? kj : 0),
+                    kj < tk);
+    }
+    tc::cp_async_commit();
+  };
+  load_tile(0, 0);
+
+  // q (scaled and rounded) and do into shared memory, and delta =
+  // rowsum(do . o) in fp32: two threads per row, each over half of its
+  // 16-byte chunks, every load issued before the sums need it
+  static_assert(kTcThreads == 2 * kTcBlock && kChunks % 2 == 0,
+                "two threads per row");
+  {
+    const int r = tid >> 1, c0 = (tid & 1) * (kChunks / 2), qi = q0 + r;
+    float part = 0.f;
+#pragma unroll
+    for (int i = 0; i < kChunks / 2; ++i) {
+      const int col = (c0 + i) * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u), y = x;
+      if (qi < tq) {
+        x = tc::scale_bf16x8(
+            *reinterpret_cast<const uint4*>(qb + qi * a.q_sr + col), a.scale);
+        y = *reinterpret_cast<const uint4*>(dob + qi * a.do_sr + col);
+        part += dot_bf16x8(
+            y, *reinterpret_cast<const uint4*>(ob + qi * a.o_sr + col));
+      }
+      *reinterpret_cast<uint4*>(qs_s + r * S + col) = x;
+      *reinterpret_cast<uint4*>(do_s + r * S + col) = y;
+    }
+    part += __shfl_xor_sync(kFull, part, 1);
+    if ((tid & 1) == 0) {
+      delta_s[r] = part;
+      if (qi < tq)
+        a.delta[(static_cast<long long>(b) * tq + qi) * H + h] = part;
+    }
+  }
+  __syncthreads();
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  float dl[2], ls[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    dl[r] = delta_s[warp * 16 + g + 8 * r];
+    ls[r] = qi < tq ? a.lse[(static_cast<long long>(b) * tq + qi) * H + h]
+                    : 0.f;
+  }
+  unsigned long long sd = 0;
+  if (kDropout) sd = static_cast<unsigned long long>(*a.seed);
+
+  float acc[kTiles][4];
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kTcTile, st = it & 1;
+    if (it + 1 < n_tiles) load_tile(k0 + kTcTile, st ^ 1);
+    unsigned drop = 0;  // the tile's mask, drawn while the copies fly
+    if (kDropout)
+      drop = philox::tile_drop_bits(sd, k0, row0, h, b, a.threshold, t);
+    if (it + 1 < n_tiles) {
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = kv_s + st * 2 * kTcTile * S;
+    const bf16* vs = ks + kTcTile * S;
+
+    // S = qs . k^T and dP = do . v^T
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t qa[4], da[4];
+      tc::ldmatrix_x4(qa, tc::a_rows<S>(qs_s, warp * 16, kk * 16, lane));
+      tc::ldmatrix_x4(da, tc::a_rows<S>(do_s, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t kf[4], vf[4];
+        tc::ldmatrix_x4(kf, tc::b_rows<S>(ks, jj * 16, kk * 16, lane));
+        tc::ldmatrix_x4(vf, tc::b_rows<S>(vs, jj * 16, kk * 16, lane));
+        tc::mma_bf16(s[2 * jj], qa, kf[0], kf[1]);
+        tc::mma_bf16(s[2 * jj + 1], qa, kf[2], kf[3]);
+        tc::mma_bf16(dp[2 * jj], da, vf[0], vf[1]);
+        tc::mma_bf16(dp[2 * jj + 1], da, vf[2], vf[3]);
+      }
+    }
+
+    // dss = round(p * (dw - delta) * scale), left in s
+    const bool edge =
+        (a.causal && k0 + kTcTile > q0) || k0 + kTcTile > tk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = 8 * j + 2 * t + (e & 1);
+        float x = s[j][e];
+        if (a.use_bias) x += bias_s[st * kTcTile + kc];
+        if (edge) {
+          const int kj = k0 + kc;
+          if (a.causal && kj > row0 + 8 * (e >> 1)) x = kNegInf;
+          if (kj >= tk) x = -INFINITY;
+        }
+        const float p = expf(x - ls[e >> 1]);
+        float dw = dp[j][e];
+        if (kDropout)
+          dw = (drop >> (4 * j + e)) & 1u ? 0.f : __fmul_rn(dw, a.inv_keep);
+        s[j][e] = p * (dw - dl[e >> 1]) * a.scale;
+      }
+    }
+
+    // dq += dss . k
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t sa[4];
+      tc::acc_to_a(sa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t kf[4];
+        tc::ldmatrix_x4_trans(kf, tc::bt_rows<S>(ks, kk * 16, dd * 16, lane));
+        tc::mma_bf16(acc[2 * dd], sa, kf[0], kf[1]);
+        tc::mma_bf16(acc[2 * dd + 1], sa, kf[2], kf[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // dq through this warp's rows of qs_s (read by this warp only)
+  bf16* o_s = qs_s + warp * 16 * S;
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n) {
+    *reinterpret_cast<uint32_t*>(o_s + g * S + 8 * n + 2 * t) =
+        tc::pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(o_s + (g + 8) * S + 8 * n + 2 * t) =
+        tc::pack_bf16(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+  bf16* dqb = static_cast<bf16*>(a.dq);
+  for (int c = lane; c < 16 * kChunks; c += 32) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const int qi = q0 + warp * 16 + r;
+    if (qi < tq)
+      *reinterpret_cast<uint4*>(dqb + (static_cast<long long>(b) * tq + qi) *
+                                          (H * D) + h * D + col) =
+          *reinterpret_cast<const uint4*>(o_s + r * S + col);
+  }
+}
+
+// dk and dv: a block owns 64 keys of one (batch, head); rectangles are held
+// transposed, keys down and queries across.  A warp's 16 keys sit in its
+// rows of k_s and v_s in the order 0, 2, .., 14, 1, 3, .., 15, so that the
+// mma rows g and g + 8 of lane 4g + t are the neighbouring keys 2g, 2g + 1
+// and a Philox block (4 keys) is shared by two lanes, not four.
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
+  constexpr int S = D + 8;
+  constexpr int kChunks = D / 8;
+  constexpr int kSteps = D / 16;
+  constexpr int kTiles = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_tc);
+  bf16* v_s = k_s + kTcBlock * S;
+  bf16* ring_s = v_s + kTcBlock * S;  // stage st: q at st*2*64*S, do after
+  bf16* qs_s = ring_s + 4 * kTcTile * S;  // round(q * scale)
+  bf16* dok_s = qs_s + kTcTile * S;       // round(do / keep)
+  float* stat_s = reinterpret_cast<float*>(dok_s + kTcTile * S);  // [2][lse, delta]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * kTcBlock, h = blockIdx.y, b = blockIdx.z;
+  const int tq = a.tq, tk = a.tk, H = a.num_heads;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * D;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * D;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * D;
+  const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * D;
+  const long long stat0 = static_cast<long long>(b) * tq;
+  // causal: queries before the block's first key see none of its keys
+  const int q_begin = a.causal ? k0 : 0;
+  const int n_tiles = (tq - q_begin + kTcTile - 1) / kTcTile;
+
+  // the block's K and V rows (zero beyond Tk), key 16w + i at row
+  // 16w + i/2 + 8(i%2), join the first tile's group
+  for (int c = tid; c < kTcBlock * kChunks; c += kTcThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8, kj = k0 + r;
+    const int m = (r & ~15) | ((r & 15) >> 1) | ((r & 1) << 3);
+    const bool in = kj < tk;
+    const long long row = in ? kj : 0;
+    tc::cp_async16(k_s + m * S + col, kb + row * a.k_sr + col, in);
+    tc::cp_async16(v_s + m * S + col, vb + row * a.v_sr + col, in);
+  }
+  auto load_tile = [&](int q0, int st) {
+    bf16* qr = ring_s + st * 2 * kTcTile * S;
+    bf16* dr = qr + kTcTile * S;
+    for (int c = tid; c < kTcTile * kChunks; c += kTcThreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 8, qi = q0 + r;
+      const bool in = qi < tq;
+      const long long row = in ? qi : 0;
+      tc::cp_async16(qr + r * S + col, qb + row * a.q_sr + col, in);
+      tc::cp_async16(dr + r * S + col, dob + row * a.do_sr + col, in);
+    }
+    // threads 0-63 copy lse, 64-127 delta, of one query each
+    const int qi = q0 + (tid & 63);
+    const bool in = qi < tq;
+    const float* src = tid < 64 ? a.lse : a.delta;
+    tc::cp_async4(stat_s + st * 2 * kTcTile + tid,
+                  src + (stat0 + (in ? qi : 0)) * H + h, in);
+    tc::cp_async_commit();
+  };
+  load_tile(q_begin, 0);
+
+  const int key0 = k0 + warp * 16 + 2 * g;  // this lane's keys: key0, +1
+  float bias_k[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = key0 + r;
+    bias_k[r] = (a.use_bias && kj < tk)
+                    ? a.bias[static_cast<long long>(b) * tk + kj]
+                    : 0.f;
+  }
+  unsigned long long sd = 0;
+  if (kDropout) sd = static_cast<unsigned long long>(*a.seed);
+
+  float dk[kTiles][4], dv[kTiles][4];
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * kTcTile, st = it & 1;
+    if (it + 1 < n_tiles) load_tile(q0 + kTcTile, st ^ 1);
+    unsigned drop = 0;  // the tile's mask, drawn while the copies fly
+    if (kDropout)
+      drop = philox::tile_drop_bits_t(sd, key0, q0, h, b, a.threshold, g, t);
+    if (it + 1 < n_tiles) {
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    const bf16* qr = ring_s + st * 2 * kTcTile * S;
+    const bf16* dr = qr + kTcTile * S;
+    // each thread scales the chunks its own copies brought in: q * scale
+    // (and do / keep) rounded to bf16, the TPU kernel's operands
+    for (int c = tid; c < kTcTile * kChunks; c += kTcThreads) {
+      const int off = (c / kChunks) * S + (c % kChunks) * 8;
+      *reinterpret_cast<uint4*>(qs_s + off) = tc::scale_bf16x8(
+          *reinterpret_cast<const uint4*>(qr + off), a.scale);
+      if (kDropout)
+        *reinterpret_cast<uint4*>(dok_s + off) = tc::scale_bf16x8(
+            *reinterpret_cast<const uint4*>(dr + off), a.inv_keep);
+    }
+    __syncthreads();
+    const float* lse_t = stat_s + st * 2 * kTcTile;
+    const float* delta_t = lse_t + kTcTile;
+
+    // S^T = k . qs^T and dP^T = v . do^T (keys down, queries across)
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t ka[4], va[4];
+      tc::ldmatrix_x4(ka, tc::a_rows<S>(k_s, warp * 16, kk * 16, lane));
+      tc::ldmatrix_x4(va, tc::a_rows<S>(v_s, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t qf[4], df[4];
+        tc::ldmatrix_x4(qf, tc::b_rows<S>(qs_s, jj * 16, kk * 16, lane));
+        tc::ldmatrix_x4(df, tc::b_rows<S>(dr, jj * 16, kk * 16, lane));
+        tc::mma_bf16(s[2 * jj], ka, qf[0], qf[1]);
+        tc::mma_bf16(s[2 * jj + 1], ka, qf[2], qf[3]);
+        tc::mma_bf16(dp[2 * jj], va, df[0], df[1]);
+        tc::mma_bf16(dp[2 * jj + 1], va, df[2], df[3]);
+      }
+    }
+
+    // g = keep ? p : 0 (left in s) and dss (left in dp)
+    const bool edge = (a.causal && q0 < k0 + kTcBlock) ||
+                      q0 + kTcTile > tq || k0 + kTcBlock > tk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        const int kj = key0 + (e >> 1);
+        float x = s[j][e] + bias_k[e >> 1];
+        if (edge) {
+          if (a.causal && kj > q0 + qc) x = kNegInf;
+          if (kj >= tk) x = -INFINITY;
+        }
+        float p = expf(x - lse_t[qc]);
+        if (edge && q0 + qc >= tq) p = 0.f;
+        float dw = dp[j][e];
+        float gv = p;
+        if (kDropout) {
+          const bool dropped = (drop >> (4 * j + e)) & 1u;
+          gv = dropped ? 0.f : p;
+          dw = dropped ? 0.f : __fmul_rn(dw, a.inv_keep);
+        }
+        s[j][e] = gv;
+        dp[j][e] = p * (dw - delta_t[qc]) * a.scale;
+      }
+    }
+
+    // dv += round(g) . round(do / keep), dk += dss . q_raw
+    const bf16* dv_b = kDropout ? dok_s : dr;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ga[4], sa[4];
+      tc::acc_to_a(ga, s[2 * kk], s[2 * kk + 1]);
+      tc::acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t of[4], qf[4];
+        tc::ldmatrix_x4_trans(of, tc::bt_rows<S>(dv_b, kk * 16, dd * 16, lane));
+        tc::ldmatrix_x4_trans(qf, tc::bt_rows<S>(qr, kk * 16, dd * 16, lane));
+        tc::mma_bf16(dv[2 * dd], ga, of[0], of[1]);
+        tc::mma_bf16(dv[2 * dd + 1], ga, of[2], of[3]);
+        tc::mma_bf16(dk[2 * dd], sa, qf[0], qf[1]);
+        tc::mma_bf16(dk[2 * dd + 1], sa, qf[2], qf[3]);
+      }
+    }
+    __syncthreads();  // the stage and the scaled tiles are consumed
+  }
+
+  // dk and dv through this warp's rows of k_s and v_s (read by this warp
+  // only), now in key order, to 16-byte stores
+  bf16* dk_s = k_s + warp * 16 * S;
+  bf16* dv_s = v_s + warp * 16 * S;
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n) {
+    const int off0 = 2 * g * S + 8 * n + 2 * t, off1 = off0 + S;
+    *reinterpret_cast<uint32_t*>(dk_s + off0) = tc::pack_bf16(dk[n][0], dk[n][1]);
+    *reinterpret_cast<uint32_t*>(dk_s + off1) = tc::pack_bf16(dk[n][2], dk[n][3]);
+    *reinterpret_cast<uint32_t*>(dv_s + off0) = tc::pack_bf16(dv[n][0], dv[n][1]);
+    *reinterpret_cast<uint32_t*>(dv_s + off1) = tc::pack_bf16(dv[n][2], dv[n][3]);
+  }
+  __syncwarp();
+  bf16* dkb = static_cast<bf16*>(a.dk);
+  bf16* dvb = static_cast<bf16*>(a.dv);
+  for (int c = lane; c < 16 * kChunks; c += 32) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const int kj = k0 + warp * 16 + r;
+    if (kj >= tk) continue;
+    const long long off =
+        (static_cast<long long>(b) * tk + kj) * (H * D) + h * D + col;
+    *reinterpret_cast<uint4*>(dkb + off) =
+        *reinterpret_cast<const uint4*>(dk_s + r * S + col);
+    *reinterpret_cast<uint4*>(dvb + off) =
+        *reinterpret_cast<const uint4*>(dv_s + r * S + col);
+  }
+}
+
+template <int D, bool kDropout>
+cudaError_t launch_tc(const Args& a, int batch, cudaStream_t stream) {
+  // dynamic shared memory above 48 KB needs the opt-in, once per kernel
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mha_bwd_dq_tc<D, kDropout>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, dq_tc_smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(mha_bwd_dkdv_tc<D, kDropout>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dkdv_tc_smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid_q((a.tq + kTcBlock - 1) / kTcBlock, a.num_heads, batch);
+  mha_bwd_dq_tc<D, kDropout>
+      <<<grid_q, kTcThreads, dq_tc_smem_bytes<D>(), stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_k((a.tk + kTcBlock - 1) / kTcBlock, a.num_heads, batch);
+  mha_bwd_dkdv_tc<D, kDropout>
+      <<<grid_k, kTcThreads, dkdv_tc_smem_bytes<D>(), stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32: scalar FMA
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 8;
+constexpr int kRowsPerWarp = 4;
+constexpr int kBlock = kWarps * kRowsPerWarp;  // rows (queries or keys)
+constexpr int kTile = 32;                      // streamed tile (keys or queries)
+
 template <int D>
 constexpr int dq_smem_bytes() {
   // qs[32][D], do[32][D], k[32][D+1], v[32][D+1], ds[8][4][32], bias[32]
@@ -124,11 +581,9 @@ constexpr int dkdv_smem_bytes() {
           2 * kWarps * kRowsPerWarp * kTile + 2 * kTile) * 4;
 }
 
-// ---------------------------------------------------------------------------
 // dq (and delta): a block owns 32 query rows of one (batch, head)
-// ---------------------------------------------------------------------------
-template <typename T, int D, bool kDropout>
-__global__ void __launch_bounds__(kWarps * 32) mha_bwd_dq(Args a) {
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kWarps * 32) mha_bwd_dq_fp32(Args a) {
   constexpr int kDims = D / 32;
   extern __shared__ float smem[];
   float(*qs_s)[D] = reinterpret_cast<float(*)[D]>(smem);
@@ -142,20 +597,19 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dq(Args a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
   const int tq = a.tq, tk = a.tk, H = a.num_heads;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * D;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * D;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * D;
-  const T* ob = static_cast<const T*>(a.o) + b * a.o_sb + h * D;
-  const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * D;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * D;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * D;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * D;
+  const float* ob = static_cast<const float*>(a.o) + b * a.o_sb + h * D;
+  const float* dob = static_cast<const float*>(a.dout) + b * a.do_sb + h * D;
   unsigned long long sd = 0;
   if (kDropout) sd = static_cast<unsigned long long>(*a.seed);
 
   for (int idx = tid; idx < kBlock * D; idx += blockDim.x) {
     const int r = idx / D, c = idx - r * D, qi = q0 + r;
     const bool in = qi < tq;
-    qs_s[r][c] = in ? round_to<T>(to_float(qb[qi * a.q_sr + c]) * a.scale)
-                    : 0.f;
-    do_s[r][c] = in ? to_float(dob[qi * a.do_sr + c]) : 0.f;
+    qs_s[r][c] = in ? qb[qi * a.q_sr + c] * a.scale : 0.f;
+    do_s[r][c] = in ? dob[qi * a.do_sr + c] : 0.f;
   }
   __syncthreads();
 
@@ -168,8 +622,7 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dq(Args a) {
     if (qi < tq) {
 #pragma unroll
       for (int d = 0; d < kDims; ++d)
-        part += do_s[r][lane + 32 * d] *
-                to_float(ob[qi * a.o_sr + lane + 32 * d]);
+        part += do_s[r][lane + 32 * d] * ob[qi * a.o_sr + lane + 32 * d];
     }
     delta[i] = warp_sum(part);
     lse[i] = qi < tq ? a.lse[((long long)b * tq + qi) * H + h] : 0.f;
@@ -189,8 +642,8 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dq(Args a) {
     for (int idx = tid; idx < kTile * D; idx += blockDim.x) {
       const int r = idx / D, c = idx - r * D, kj = k0 + r;
       const bool in = kj < tk;
-      k_s[r][c] = in ? to_float(kb[kj * a.k_sr + c]) : 0.f;
-      v_s[r][c] = in ? to_float(vb[kj * a.v_sr + c]) : 0.f;
+      k_s[r][c] = in ? kb[kj * a.k_sr + c] : 0.f;
+      v_s[r][c] = in ? vb[kj * a.v_sr + c] : 0.f;
     }
     if (tid < kTile) {
       const int kj = k0 + tid;
@@ -228,13 +681,13 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dq(Args a) {
       float dw = dg[i];
       if (kDropout) {
         const int src = i * 8 + (lane >> 2);
-        const uint4 w = make_uint4(__shfl_sync(0xffffffffu, bits.x, src),
-                                   __shfl_sync(0xffffffffu, bits.y, src),
-                                   __shfl_sync(0xffffffffu, bits.z, src),
-                                   __shfl_sync(0xffffffffu, bits.w, src));
+        const uint4 w = make_uint4(__shfl_sync(kFull, bits.x, src),
+                                   __shfl_sync(kFull, bits.y, src),
+                                   __shfl_sync(kFull, bits.z, src),
+                                   __shfl_sync(kFull, bits.w, src));
         dw = philox::word(w, lane & 3) >= a.threshold ? dw * a.inv_keep : 0.f;
       }
-      ds_s[warp][i][lane] = round_to<T>(p * (dw - delta[i]) * a.scale);
+      ds_s[warp][i][lane] = p * (dw - delta[i]) * a.scale;
     }
     __syncwarp();
 
@@ -250,28 +703,26 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dq(Args a) {
     }
   }
 
-  T* dqb = static_cast<T*>(a.dq);
+  float* dqb = static_cast<float*>(a.dq);
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int qi = q0 + warp * kRowsPerWarp + i;
     if (qi >= tq) continue;
-    T* row = dqb + ((long long)b * tq + qi) * (H * D) + h * D;
+    float* row = dqb + ((long long)b * tq + qi) * (H * D) + h * D;
 #pragma unroll
-    for (int d = 0; d < kDims; ++d) row[lane + 32 * d] = from_float<T>(acc[i][d]);
+    for (int d = 0; d < kDims; ++d) row[lane + 32 * d] = acc[i][d];
   }
 }
 
-// ---------------------------------------------------------------------------
 // dk and dv: a block owns 32 keys of one (batch, head)
-// ---------------------------------------------------------------------------
-template <typename T, int D, bool kDropout>
-__global__ void __launch_bounds__(kWarps * 32) mha_bwd_dkdv(Args a) {
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kWarps * 32) mha_bwd_dkdv_fp32(Args a) {
   constexpr int kDims = D / 32;
   extern __shared__ float smem[];
   float(*k_s)[D] = reinterpret_cast<float(*)[D]>(smem);
   float(*v_s)[D] = k_s + kBlock;
   float(*qr_s)[D] = v_s + kBlock;   // raw q (for dk)
-  float(*dok_s)[D] = qr_s + kTile;  // round(do / keep) (for dv)
+  float(*dok_s)[D] = qr_s + kTile;  // do / keep (for dv)
   float(*qs_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(dok_s + kTile);
   float(*do_s)[D + 1] = qs_s + kTile;
   float(*g_s)[kRowsPerWarp][kTile] =
@@ -283,18 +734,18 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dkdv(Args a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int k0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
   const int tq = a.tq, tk = a.tk, H = a.num_heads;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * D;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * D;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * D;
-  const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * D;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * D;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * D;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * D;
+  const float* dob = static_cast<const float*>(a.dout) + b * a.do_sb + h * D;
   unsigned long long sd = 0;
   if (kDropout) sd = static_cast<unsigned long long>(*a.seed);
 
   for (int idx = tid; idx < kBlock * D; idx += blockDim.x) {
     const int r = idx / D, c = idx - r * D, kj = k0 + r;
     const bool in = kj < tk;
-    k_s[r][c] = in ? to_float(kb[kj * a.k_sr + c]) : 0.f;
-    v_s[r][c] = in ? to_float(vb[kj * a.v_sr + c]) : 0.f;
+    k_s[r][c] = in ? kb[kj * a.k_sr + c] : 0.f;
+    v_s[r][c] = in ? vb[kj * a.v_sr + c] : 0.f;
   }
   const int key0 = k0 + warp * kRowsPerWarp;  // the warp's first key
   float bias_k[kRowsPerWarp];
@@ -316,12 +767,12 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dkdv(Args a) {
     for (int idx = tid; idx < kTile * D; idx += blockDim.x) {
       const int r = idx / D, c = idx - r * D, qi = q0 + r;
       const bool in = qi < tq;
-      const float qv = in ? to_float(qb[qi * a.q_sr + c]) : 0.f;
-      const float dov = in ? to_float(dob[qi * a.do_sr + c]) : 0.f;
+      const float qv = in ? qb[qi * a.q_sr + c] : 0.f;
+      const float dov = in ? dob[qi * a.do_sr + c] : 0.f;
       qr_s[r][c] = qv;
-      qs_s[r][c] = round_to<T>(qv * a.scale);
+      qs_s[r][c] = qv * a.scale;
       do_s[r][c] = dov;
-      dok_s[r][c] = round_to<T>(dov * a.inv_keep);
+      dok_s[r][c] = dov * a.inv_keep;
     }
     if (tid < kTile) {
       const int qi = q0 + tid;
@@ -360,8 +811,8 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dkdv(Args a) {
         g = keep ? p : 0.f;
         dw = keep ? dw * a.inv_keep : 0.f;
       }
-      g_s[warp][i][lane] = round_to<T>(g);
-      ds_s[warp][i][lane] = round_to<T>(p * (dw - delta_s[lane]) * a.scale);
+      g_s[warp][i][lane] = g;
+      ds_s[warp][i][lane] = p * (dw - delta_s[lane]) * a.scale;
     }
     __syncwarp();
 
@@ -380,8 +831,8 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dkdv(Args a) {
     }
   }
 
-  T* dkb = static_cast<T*>(a.dk);
-  T* dvb = static_cast<T*>(a.dv);
+  float* dkb = static_cast<float*>(a.dk);
+  float* dvb = static_cast<float*>(a.dv);
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int kj = key0 + i;
@@ -389,54 +840,58 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dkdv(Args a) {
     const long long off = ((long long)b * tk + kj) * (H * D) + h * D;
 #pragma unroll
     for (int d = 0; d < kDims; ++d) {
-      dkb[off + lane + 32 * d] = from_float<T>(dk[i][d]);
-      dvb[off + lane + 32 * d] = from_float<T>(dv[i][d]);
+      dkb[off + lane + 32 * d] = dk[i][d];
+      dvb[off + lane + 32 * d] = dv[i][d];
     }
   }
 }
 
-template <typename T, int D, bool kDropout>
-cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
+template <int D, bool kDropout>
+cudaError_t launch_fp32(const Args& a, int batch, cudaStream_t stream) {
   // dynamic shared memory above 48 KB needs the opt-in, once per kernel
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        mha_bwd_dq<T, D, kDropout>,
+        mha_bwd_dq_fp32<D, kDropout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_bytes<D>());
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(mha_bwd_dkdv<T, D, kDropout>,
+    err = cudaFuncSetAttribute(mha_bwd_dkdv_fp32<D, kDropout>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                dkdv_smem_bytes<D>());
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid_q((a.tq + kBlock - 1) / kBlock, a.num_heads, batch);
-  mha_bwd_dq<T, D, kDropout>
+  mha_bwd_dq_fp32<D, kDropout>
       <<<grid_q, kWarps * 32, dq_smem_bytes<D>(), stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_k((a.tk + kBlock - 1) / kBlock, a.num_heads, batch);
-  mha_bwd_dkdv<T, D, kDropout>
+  mha_bwd_dkdv_fp32<D, kDropout>
       <<<grid_k, kWarps * 32, dkdv_smem_bytes<D>(), stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t dispatch_rate(bool dropout, const Args& a, int batch,
-                          cudaStream_t stream) {
-  return dropout ? launch<T, D, true>(a, batch, stream)
-                 : launch<T, D, false>(a, batch, stream);
+template <int D>
+cudaError_t dispatch(int dtype, bool dropout, const Args& a, int batch,
+                     cudaStream_t s) {
+  if (dtype == 1)
+    return dropout ? launch_tc<D, true>(a, batch, s)
+                   : launch_tc<D, false>(a, batch, s);
+  return dropout ? launch_fp32<D, true>(a, batch, s)
+                 : launch_fp32<D, false>(a, batch, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 96.  Strides are in
-// elements; the last dim of q, k, v, o and dout must be contiguous.  bias
-// [B, Tk] float32 (ignored unless use_bias); seed one int64 on the device
-// (read only when dropout != 0); lse [B, Tq, H] float32 from the forward.
-// dq [B, Tq, H*D], dk and dv [B, Tk, H*D] in the input type and delta
-// [B, Tq, H] float32 (workspace) are contiguous outputs.  inv_keep is
-// float(1 / (1 - rate)).
+// elements; the last dim of q, k, v, o and dout must be contiguous, and for
+// bfloat16 the base addresses and the batch and row strides of q, k, v, o
+// and dout must be multiples of 16 bytes.  bias [B, Tk] float32 (ignored unless
+// use_bias); seed one int64 on the device (read only when dropout != 0);
+// lse [B, Tq, H] float32 from the forward.  dq [B, Tq, H*D], dk and dv
+// [B, Tk, H*D] in the input type and delta [B, Tq, H] float32 (workspace)
+// are contiguous outputs.  inv_keep is float(1 / (1 - rate)).
 extern "C" int mha_bwd(int dtype, int head_dim, const void* q, const void* k,
                        const void* v, const void* bias, const void* seed,
                        const void* o, const void* lse, const void* dout,
@@ -447,6 +902,7 @@ extern "C" int mha_bwd(int dtype, int head_dim, const void* q, const void* k,
                        long long o_sr, long long do_sb, long long do_sr,
                        float scale, int causal, int use_bias, int dropout,
                        unsigned threshold, float inv_keep, void* stream) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,  k,  v,  static_cast<const float*>(bias),
          static_cast<const long long*>(seed), o, static_cast<const float*>(lse),
          dout, dq, dk, dv, static_cast<float*>(delta),
@@ -454,14 +910,8 @@ extern "C" int mha_bwd(int dtype, int head_dim, const void* q, const void* k,
          do_sb, do_sr, scale, causal, use_bias, threshold, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = dropout != 0;
-  if (dtype == 0 && head_dim == 64)
-    return dispatch_rate<float, 64>(drop, a, batch, s);
-  if (dtype == 0 && head_dim == 96)
-    return dispatch_rate<float, 96>(drop, a, batch, s);
-  if (dtype == 1 && head_dim == 64)
-    return dispatch_rate<__nv_bfloat16, 64>(drop, a, batch, s);
-  if (dtype == 1 && head_dim == 96)
-    return dispatch_rate<__nv_bfloat16, 96>(drop, a, batch, s);
+  if (head_dim == 64) return dispatch<64>(dtype, drop, a, batch, s);
+  if (head_dim == 96) return dispatch<96>(dtype, drop, a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

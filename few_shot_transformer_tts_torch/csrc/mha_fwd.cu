@@ -18,26 +18,37 @@
 // instantiation with no mask code.  Keys at or beyond Tk are excluded (the
 // TPU kernel pads them at -1e30, whose exponent is exactly 0 in fp32).
 //
-// Design.  The TPU kernel keeps a whole K/V (up to 2048 x 768) in VMEM; a
-// Hopper block has at most 227 KB of shared memory, so here a block owns 32
-// query rows of one (batch, head) -- grid (ceil(Tq/32), H, B) -- and streams
-// K/V through shared memory in 32-key tiles with an online softmax in fp32.
-// Causal blocks stop at the last key their rows can see.  Each of the 8 warps
-// owns 4 query rows; lane j computes the scores of key j for those rows, the
-// row max and sum are warp shuffles, and for P.V lane j accumulates the
-// output dims j, j+32 (and j+64 at D=96).  With dropout, each lane draws one
-// Philox block (4 keys of one row) per tile, and the words reach the lanes
-// that own those keys by shuffles: one generator call per 4 scores.  q, k
-// and v are read through their row strides, so the split views of a fused
-// QKV projection need no copy and no head transpose.  Arithmetic is scalar
-// fp32 FMA from shared memory: the kernel is simple and exact first; tensor
-// cores (mma/wgmma) and TMA are later work.
-//
 // Bound.  The function must read q, k, v and bias once and write o and lse
-// once: at the flagship encoder shape (B=8, T=192, C=512, bf16) that is about
-// 6.3 MB, 1.9 us at 3.35 TB/s, against 0.6 GFLOP = 0.6 us at the 989 TFLOP/s
-// bf16 tensor-core rate -- bytes bound it.  This scalar kernel runs far from
-// that bound; PERF.md holds its measured times.
+// once: at the flagship decoder's causal training shape (B=16, T=448,
+// C=768, bf16) that is 44 MB, 13 us at 3.35 TB/s, against 2.5 GFLOP of
+// products, 2.5 us at the 989 TFLOP/s bf16 tensor-core rate -- bytes bound
+// it, as at every flagship shape.
+//
+// Design (bf16, mha_fwd_tc).  The TPU kernel keeps a whole K/V in VMEM; a
+// Hopper block owns 64 query rows of one (batch, head) -- grid
+// (ceil(Tq/64), H, B), 4 warps of 16 rows -- so each K/V byte staged in
+// shared memory serves 64 rows, and K/V stream through a two-stage ring of
+// 64-key tiles filled by 16-byte cp.async, the next tile's copy in flight
+// while this tile's math runs.  Both products run on the tensor cores
+// (mma.sync m16n8k16, bf16 in, fp32 accumulate, tensor_core.cuh): q, scaled
+// and rounded where the TPU kernel rounds it, is staged once and held as A
+// fragments; S = q.k^T stays in registers, the online softmax runs on the
+// accumulator fragments in fp32, and p, rounded to bf16 where the TPU
+// kernel casts it, becomes the A operand of P.V without leaving registers.
+// Causal blocks stop at their last visible key tile and mask only the
+// diagonal one.  With dropout, a lane draws one Philox block (4 keys of one
+// row) per 8-key column tile and trades half of it with its neighbour lane,
+// which holds the other row of those keys: 8 generator calls per lane per
+// tile, one per 4 scores, the bits of philox.cuh's (k/4, q, h, b) mapping
+// (philox::tile_drop_bits), drawn while the tile's copy is in flight.
+// q, k and v are read through their row strides (split views of a fused
+// QKV projection pass as they are); their base addresses and strides must
+// be 16-byte multiples (ops/mha.py checks).  o leaves through shared memory
+// in 16-byte rows.
+//
+// fp32 (mha_fwd_fp32): the tensor cores would need TF32, which would change
+// the reference's numerics, so fp32 keeps the scalar kernel: 32 query rows
+// per block, 32-key tiles, lane j owning key j, FMA from shared memory.
 //
 // Interface: a plain C entry, built by nvcc into a shared library and loaded
 // with ctypes (few_shot_transformer_tts_torch/ops/cuda_build.py).  It
@@ -49,60 +60,306 @@
 #include <math.h>
 
 #include "philox.cuh"
+#include "tensor_core.cuh"
 
 namespace {
+
+constexpr float kNegInf = -1e20f;  // causal mask value
+constexpr unsigned kFull = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 128;  // 4 warps
+constexpr int kTcRows = 64;      // query rows per block, 16 per warp
+constexpr int kTcKeys = 64;      // keys per tile
+
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;
+  const long long* seed;
+  void* o;
+  float* lse;
+  int tq, tk, num_heads;
+  long long q_sb, q_sr, k_sb, k_sr, v_sb, v_sr;
+  float scale;
+  int causal, use_bias;
+  unsigned threshold;
+  float keep_prob;
+};
+
+template <int D>
+constexpr int fwd_tc_smem_bytes() {
+  // q (then o) [64][D+8]; k and v in two stages [2][2][64][D+8]; bias [2][64]
+  return (kTcRows + 4 * kTcKeys) * (D + 8) * 2 + 2 * kTcKeys * 4;
+}
+
+template <int D, bool kDropout>
+__global__ void __launch_bounds__(kTcThreads) mha_fwd_tc(FwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int S = D + 8;         // shared row stride, elements
+  constexpr int kChunks = D / 8;   // 16-byte chunks per row
+  constexpr int kSteps = D / 16;   // k-steps of q.k^T
+  constexpr int kTiles = D / 8;    // n-tiles of P.V
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_tc);
+  bf16* kv_s = q_s + kTcRows * S;  // stage st: k at st*2*64*S, v after it
+  float* bias_s = reinterpret_cast<float*>(kv_s + 4 * kTcKeys * S);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kTcRows, h = blockIdx.y, b = blockIdx.z;
+  const int tq = a.tq, tk = a.tk, H = a.num_heads;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * D;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * D;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * D;
+  const float* biasb = a.bias + static_cast<long long>(b) * tk;
+  // causal rows of this block see no key beyond q0 + 63
+  const int k_end = a.causal ? min(tk, q0 + kTcRows) : tk;
+  const int n_tiles = (k_end + kTcKeys - 1) / kTcKeys;
+
+  // one K/V tile (and its bias) into stage st; rows beyond Tk are zero
+  auto load_tile = [&](int k0, int st) {
+    bf16* ks = kv_s + st * 2 * kTcKeys * S;
+    bf16* vs = ks + kTcKeys * S;
+    for (int c = tid; c < kTcKeys * kChunks; c += kTcThreads) {
+      const int r = c / kChunks, col = (c % kChunks) * 8, kj = k0 + r;
+      const bool in = kj < tk;
+      const long long row = in ? kj : 0;
+      tc::cp_async16(ks + r * S + col, kb + row * a.k_sr + col, in);
+      tc::cp_async16(vs + r * S + col, vb + row * a.v_sr + col, in);
+    }
+    if (a.use_bias && tid < kTcKeys) {
+      const int kj = k0 + tid;
+      tc::cp_async4(bias_s + st * kTcKeys + tid, biasb + (kj < tk ? kj : 0),
+                    kj < tk);
+    }
+    tc::cp_async_commit();
+  };
+  load_tile(0, 0);
+
+  // q, scaled in fp32 and rounded back to bf16 (the TPU kernel's rounding
+  // before its dot); rows beyond Tq are zero and never stored
+  for (int c = tid; c < kTcRows * kChunks; c += kTcThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8, qi = q0 + r;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (qi < tq)
+      x = tc::scale_bf16x8(
+          *reinterpret_cast<const uint4*>(qb + qi * a.q_sr + col), a.scale);
+    *reinterpret_cast<uint4*>(q_s + r * S + col) = x;
+  }
+  __syncthreads();
+  uint32_t qf[kSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+    tc::ldmatrix_x4(qf[kk], tc::a_rows<S>(q_s, warp * 16, kk * 16, lane));
+
+  float acc[kTiles][4];
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
+  unsigned long long sd = 0;
+  if (kDropout) sd = static_cast<unsigned long long>(*a.seed);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kTcKeys, st = it & 1;
+    if (it + 1 < n_tiles) load_tile(k0 + kTcKeys, st ^ 1);
+    unsigned drop = 0;  // the tile's mask, drawn while the copies fly
+    if (kDropout)
+      drop = philox::tile_drop_bits(sd, k0, row0, h, b, a.threshold, t);
+    if (it + 1 < n_tiles) {
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = kv_s + st * 2 * kTcKeys * S;
+    const bf16* vs = ks + kTcKeys * S;
+
+    // S = q . k^T: 8 n-tiles of 8 keys, in registers
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t kf[4];
+        tc::ldmatrix_x4(kf, tc::b_rows<S>(ks, jj * 16, kk * 16, lane));
+        tc::mma_bf16(s[2 * jj], qf[kk], kf[0], kf[1]);
+        tc::mma_bf16(s[2 * jj + 1], qf[kk], kf[2], kf[3]);
+      }
+
+    // bias, then the causal and ragged masks (only the diagonal tile and
+    // the last one need them)
+    const bool edge =
+        (a.causal && k0 + kTcKeys > q0) || k0 + kTcKeys > tk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = 8 * j + 2 * t + (e & 1);
+        float x = s[j][e];
+        if (a.use_bias) x += bias_s[st * kTcKeys + kc];
+        if (edge) {
+          const int kj = k0 + kc;
+          if (a.causal && kj > row0 + 8 * (e >> 1)) x = kNegInf;
+          if (kj >= tk) x = -INFINITY;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax in fp32; a row's four lanes share its max
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      alpha[r] = expf(m[r] - m_new);  // 0 on the first tile
+      m[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        rs[e >> 1] += p;  // l sums the unmasked p
+      }
+    l[0] = l[0] * alpha[0] + rs[0];
+    l[1] = l[1] * alpha[1] + rs[1];
+
+    if (kDropout) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if ((drop >> (4 * j + e)) & 1u) s[j][e] = 0.f;
+    }
+
+    // acc = acc * alpha + round(p) . v
+#pragma unroll
+    for (int n = 0; n < kTiles; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t pa[4];
+      tc::acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        uint32_t vf[4];
+        tc::ldmatrix_x4_trans(vf, tc::bt_rows<S>(vs, kk * 16, dd * 16, lane));
+        tc::mma_bf16(acc[2 * dd], pa, vf[0], vf[1]);
+        tc::mma_bf16(acc[2 * dd + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+
+  // o = acc / max(l * keep, 1e-30), through this warp's q rows of shared
+  // memory (read by this warp only) to 16-byte stores
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+  }
+  const float inv0 = 1.f / fmaxf(kDropout ? l[0] * a.keep_prob : l[0], 1e-30f);
+  const float inv1 = 1.f / fmaxf(kDropout ? l[1] * a.keep_prob : l[1], 1e-30f);
+  bf16* o_s = q_s + warp * 16 * S;
+  bf16* ob = static_cast<bf16*>(a.o);
+#pragma unroll
+  for (int n = 0; n < kTiles; ++n) {
+    *reinterpret_cast<uint32_t*>(o_s + g * S + 8 * n + 2 * t) =
+        tc::pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(o_s + (g + 8) * S + 8 * n + 2 * t) =
+        tc::pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * kChunks; c += 32) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const int qi = q0 + warp * 16 + r;
+    if (qi < tq)
+      *reinterpret_cast<uint4*>(ob + (static_cast<long long>(b) * tq + qi) *
+                                         (H * D) + h * D + col) =
+          *reinterpret_cast<const uint4*>(o_s + r * S + col);
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      if (qi < tq)
+        a.lse[(static_cast<long long>(b) * tq + qi) * H + h] =
+            m[r] + logf(l[r]);
+    }
+  }
+}
+
+template <int D, bool kDropout>
+cudaError_t launch_tc(const FwdArgs& a, int batch, cudaStream_t stream) {
+  // dynamic shared memory above 48 KB needs the opt-in, once per kernel
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mha_fwd_tc<D, kDropout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd_tc_smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((a.tq + kTcRows - 1) / kTcRows, a.num_heads, batch);
+  mha_fwd_tc<D, kDropout>
+      <<<grid, kTcThreads, fwd_tc_smem_bytes<D>(), stream>>>(a);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32: scalar FMA
+// ---------------------------------------------------------------------------
 
 constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBlockQ = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBlockK = 32;                      // keys per shared-memory tile
-constexpr float kNegInf = -1e20f;                // causal mask value
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Round an fp32 value to T's precision and back.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
   return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
+    x += __shfl_xor_sync(kFull, x, off);
   return x;
 }
 
-template <typename T, int D, bool kDropout>
+template <int D, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32)
-mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const float* __restrict__ bias,
-               const long long* __restrict__ seed, T* __restrict__ o,
-               float* __restrict__ lse, int tq, int tk, int num_heads,
-               long long q_sb, long long q_sr,
-               long long k_sb, long long k_sr,
-               long long v_sb, long long v_sr,
-               float scale, int causal, int use_bias, unsigned threshold,
-               float keep_prob) {
+mha_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ bias,
+             const long long* __restrict__ seed, float* __restrict__ o,
+             float* __restrict__ lse, int tq, int tk, int num_heads,
+             long long q_sb, long long q_sr, long long k_sb, long long k_sr,
+             long long v_sb, long long v_sr, float scale, int causal,
+             int use_bias, unsigned threshold, float keep_prob) {
   static_assert(D % 32 == 0, "head dim must be a multiple of 32");
   constexpr int kDimsPerLane = D / 32;
 
@@ -119,19 +376,17 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const T* qb = q + b * q_sb + h * D;
-  const T* kb = k + b * k_sb + h * D;
-  const T* vb = v + b * v_sb + h * D;
+  const float* qb = q + b * q_sb + h * D;
+  const float* kb = k + b * k_sb + h * D;
+  const float* vb = v + b * v_sb + h * D;
   unsigned long long sd = 0;
   if (kDropout) sd = static_cast<unsigned long long>(*seed);
 
-  // q tile, scaled in fp32 and rounded back to the input type (as the TPU
-  // kernel does before its dot); rows beyond Tq are zero and never stored.
+  // q tile, scaled; rows beyond Tq are zero and never stored.
   for (int idx = tid; idx < kBlockQ * D; idx += blockDim.x) {
     const int r = idx / D, c = idx - (idx / D) * D;
     const int qi = q0 + r;
-    q_s[r][c] = qi < tq ? round_to<T>(to_float(qb[qi * q_sr + c]) * scale)
-                        : 0.f;
+    q_s[r][c] = qi < tq ? qb[qi * q_sr + c] * scale : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
@@ -152,8 +407,8 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (kj < tk) {
-        kv = to_float(kb[kj * k_sr + c]);
-        vv = to_float(vb[kj * v_sr + c]);
+        kv = kb[kj * k_sr + c];
+        vv = vb[kj * v_sr + c];
       }
       k_s[r][c] = kv;
       v_s[r][c] = vv;
@@ -198,14 +453,13 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[i] = m_new;
       if (kDropout) {
         const int src = i * 8 + (lane >> 2);
-        const uint4 w = make_uint4(__shfl_sync(0xffffffffu, bits.x, src),
-                                   __shfl_sync(0xffffffffu, bits.y, src),
-                                   __shfl_sync(0xffffffffu, bits.z, src),
-                                   __shfl_sync(0xffffffffu, bits.w, src));
+        const uint4 w = make_uint4(__shfl_sync(kFull, bits.x, src),
+                                   __shfl_sync(kFull, bits.y, src),
+                                   __shfl_sync(kFull, bits.z, src),
+                                   __shfl_sync(kFull, bits.w, src));
         if (philox::word(w, lane & 3) < threshold) p = 0.f;
       }
-      // the TPU kernel casts p to v's type before the P.V product
-      p_s[warp][i][lane] = round_to<T>(p);
+      p_s[warp][i][lane] = p;
 #pragma unroll
       for (int d = 0; d < kDimsPerLane; ++d) acc[i][d] *= alpha;
     }
@@ -228,61 +482,46 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + warp * kRowsPerWarp + i;
     if (qi >= tq) continue;
     const float r = 1.f / fmaxf(kDropout ? l[i] * keep_prob : l[i], 1e-30f);
-    T* orow = o + ((long long)b * tq + qi) * (num_heads * D) + h * D;
+    float* orow = o + ((long long)b * tq + qi) * (num_heads * D) + h * D;
 #pragma unroll
-    for (int d = 0; d < kDimsPerLane; ++d)
-      orow[lane + 32 * d] = from_float<T>(acc[i][d] * r);
+    for (int d = 0; d < kDimsPerLane; ++d) orow[lane + 32 * d] = acc[i][d] * r;
     if (lane == 0)
       lse[((long long)b * tq + qi) * num_heads + h] = m[i] + logf(l[i]);
   }
 }
 
-template <typename T, int D, bool kDropout>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, const void* seed, void* o, void* lse,
-                   int batch, int tq, int tk, int num_heads, long long q_sb,
-                   long long q_sr, long long k_sb, long long k_sr,
-                   long long v_sb, long long v_sr, float scale, int causal,
-                   int use_bias, unsigned threshold, float keep_prob,
-                   cudaStream_t stream) {
-  const dim3 grid((tq + kBlockQ - 1) / kBlockQ, num_heads, batch);
-  mha_fwd_kernel<T, D, kDropout><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<const long long*>(seed), static_cast<T*>(o),
-      static_cast<float*>(lse), tq, tk, num_heads, q_sb, q_sr, k_sb, k_sr,
-      v_sb, v_sr, scale, causal, use_bias, threshold, keep_prob);
+template <int D, bool kDropout>
+cudaError_t launch_fp32(const FwdArgs& a, int batch, cudaStream_t stream) {
+  const dim3 grid((a.tq + kBlockQ - 1) / kBlockQ, a.num_heads, batch);
+  mha_fwd_fp32<D, kDropout><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.bias, a.seed,
+      static_cast<float*>(a.o), a.lse, a.tq, a.tk, a.num_heads, a.q_sb,
+      a.q_sr, a.k_sb, a.k_sr, a.v_sb, a.v_sr, a.scale, a.causal, a.use_bias,
+      a.threshold, a.keep_prob);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t dispatch_rate(bool dropout, const void* q, const void* k,
-                          const void* v, const void* bias, const void* seed,
-                          void* o, void* lse, int batch, int tq, int tk,
-                          int num_heads, long long q_sb, long long q_sr,
-                          long long k_sb, long long k_sr, long long v_sb,
-                          long long v_sr, float scale, int causal,
-                          int use_bias, unsigned threshold, float keep_prob,
-                          cudaStream_t stream) {
-  if (dropout)
-    return launch<T, D, true>(q, k, v, bias, seed, o, lse, batch, tq, tk,
-                              num_heads, q_sb, q_sr, k_sb, k_sr, v_sb, v_sr,
-                              scale, causal, use_bias, threshold, keep_prob,
-                              stream);
-  return launch<T, D, false>(q, k, v, bias, seed, o, lse, batch, tq, tk,
-                             num_heads, q_sb, q_sr, k_sb, k_sr, v_sb, v_sr,
-                             scale, causal, use_bias, threshold, keep_prob,
-                             stream);
+template <int D>
+cudaError_t dispatch(int dtype, bool dropout, const FwdArgs& a, int batch,
+                     cudaStream_t s) {
+  if (dtype == 1)
+    return dropout ? launch_tc<D, true>(a, batch, s)
+                   : launch_tc<D, false>(a, batch, s);
+  return dropout ? launch_fp32<D, true>(a, batch, s)
+                 : launch_fp32<D, false>(a, batch, s);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 96.  Strides are in
-// elements; the last dim of q, k, v must be contiguous.  bias is [B, Tk]
-// float32 (ignored unless use_bias).  seed points at one int64 on the device
-// (read only when dropout != 0); a key is kept when its Philox word is >=
-// threshold, and keep_prob = 1 - rate scales the output.  o is [B, Tq, H*D]
-// in the input type, lse [B, Tq, H] float32, both contiguous.
+// elements; the last dim of q, k, v must be contiguous, and for bfloat16
+// the base addresses and the batch and row strides must be multiples of 16
+// bytes.  bias is [B, Tk] float32 (ignored unless use_bias).  seed points at
+// one int64 on the device (read only when dropout != 0); a key is kept when
+// its Philox word is >= threshold, and keep_prob = 1 - rate scales the
+// output.  o is [B, Tq, H*D] in the input type, lse [B, Tq, H] float32,
+// both contiguous.
 extern "C" int mha_fwd(int dtype, int head_dim, const void* q, const void* k,
                        const void* v, const void* bias, const void* seed,
                        void* o, void* lse, int batch, int tq, int tk,
@@ -291,19 +530,16 @@ extern "C" int mha_fwd(int dtype, int head_dim, const void* q, const void* k,
                        long long v_sr, float scale, int causal, int use_bias,
                        int dropout, unsigned threshold, float keep_prob,
                        void* stream) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const FwdArgs a{q, k, v, static_cast<const float*>(bias),
+                  static_cast<const long long*>(seed), o,
+                  static_cast<float*>(lse), tq, tk, num_heads, q_sb, q_sr,
+                  k_sb, k_sr, v_sb, v_sr, scale, causal, use_bias, threshold,
+                  keep_prob};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = dropout != 0;
-#define MHA_ARGS                                                             \
-  drop, q, k, v, bias, seed, o, lse, batch, tq, tk, num_heads, q_sb, q_sr,  \
-      k_sb, k_sr, v_sb, v_sr, scale, causal, use_bias, threshold, keep_prob, \
-      s
-  if (dtype == 0 && head_dim == 64) return dispatch_rate<float, 64>(MHA_ARGS);
-  if (dtype == 0 && head_dim == 96) return dispatch_rate<float, 96>(MHA_ARGS);
-  if (dtype == 1 && head_dim == 64)
-    return dispatch_rate<__nv_bfloat16, 64>(MHA_ARGS);
-  if (dtype == 1 && head_dim == 96)
-    return dispatch_rate<__nv_bfloat16, 96>(MHA_ARGS);
-#undef MHA_ARGS
+  if (head_dim == 64) return dispatch<64>(dtype, drop, a, batch, s);
+  if (head_dim == 96) return dispatch<96>(dtype, drop, a, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

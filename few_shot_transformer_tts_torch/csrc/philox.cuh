@@ -50,4 +50,79 @@ __device__ __forceinline__ unsigned word(uint4 w, int i) {
   return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
 }
 
+// The dropped elements of one 64-wide tile in the mma accumulator layout
+// of the bf16 kernels (tensor_core.cuh): bit 4j + e is set when element e
+// of column tile j is dropped.  Each lane draws 8 Philox blocks, one per 4
+// of its 32 elements, and trades two words of each with the lane that
+// holds the other half of it.  Neither depends on shared memory, so a
+// kernel draws them while its tile's copy is in flight.
+//
+// Forward and dq kernels: lane 4g + t holds queries row0 (elements 0, 1)
+// and row0 + 8 (2, 3), keys k0 + 8j + 2t + {0, 1}; k0 is a multiple of 64.
+// Those keys are words 2(t&1), 2(t&1)+1 of block (k0/4 + 2j + t/2): the
+// even lane of a pair draws the block of row0, the odd one that of
+// row0 + 8, and each hands the other the two words it needs.
+__device__ __forceinline__ unsigned tile_drop_bits(unsigned long long seed,
+                                                   int k0, int row0, int h,
+                                                   int b, unsigned threshold,
+                                                   int t) {
+  const bool odd = t & 1;
+  const int q = row0 + (odd ? 8 : 0);
+  unsigned drop = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint4 w = dropout_bits(seed, (k0 >> 2) + 2 * j + (t >> 1), q, h, b);
+    const unsigned own0 = odd ? w.z : w.x, own1 = odd ? w.w : w.y;
+    const unsigned got0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+    const unsigned got1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+    const unsigned e0 = odd ? got0 : own0, e1 = odd ? got1 : own1;
+    const unsigned e2 = odd ? own0 : got0, e3 = odd ? own1 : got1;
+    drop |= (static_cast<unsigned>(e0 < threshold) |
+             static_cast<unsigned>(e1 < threshold) << 1 |
+             static_cast<unsigned>(e2 < threshold) << 2 |
+             static_cast<unsigned>(e3 < threshold) << 3)
+            << (4 * j);
+  }
+  return drop;
+}
+
+// dk/dv kernel, the transposed layout: lane 4g + t holds keys key0 =
+// kbase + 2g (elements 0, 1) and key0 + 1 (2, 3), key0 even, of queries
+// q0 + 8j + 2t + {0, 1}.  Those keys are words 2(g&1), 2(g&1)+1 of block
+// (key0/4, query): the lane with g even draws the block of query
+// q0 + 8j + 2t, the one with g odd (4 lanes on) that of the next query, and
+// each hands the other the two words it needs.
+//
+// The dk/dv kernel holds 96 fp32 accumulators at D=96: with the ten round
+// keys hoisted out of its tile loop and eight generator chains in flight it
+// took 255 registers and spilled.  So here the seed passes an empty asm
+// (the round keys are derived per tile, not held through the products) and
+// four chains run at a time: 238 registers, no spill (ptxas, sm_90a).
+__device__ __forceinline__ unsigned tile_drop_bits_t(unsigned long long seed,
+                                                     int key0, int q0, int h,
+                                                     int b,
+                                                     unsigned threshold,
+                                                     int g, int t) {
+  const bool odd = g & 1;
+  unsigned long long sd = seed;
+  asm volatile("" : "+l"(sd));
+  unsigned drop = 0;
+#pragma unroll 4
+  for (int j = 0; j < 8; ++j) {
+    const uint4 w = dropout_bits(sd, key0 >> 2, q0 + 8 * j + 2 * t + odd, h,
+                                 b);
+    const unsigned own0 = odd ? w.z : w.x, own1 = odd ? w.w : w.y;
+    const unsigned got0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 4);
+    const unsigned got1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 4);
+    const unsigned e0 = odd ? got0 : own0, e1 = odd ? own0 : got0;
+    const unsigned e2 = odd ? got1 : own1, e3 = odd ? own1 : got1;
+    drop |= (static_cast<unsigned>(e0 < threshold) |
+             static_cast<unsigned>(e1 < threshold) << 1 |
+             static_cast<unsigned>(e2 < threshold) << 2 |
+             static_cast<unsigned>(e3 < threshold) << 3)
+            << (4 * j);
+  }
+  return drop;
+}
+
 }  // namespace philox

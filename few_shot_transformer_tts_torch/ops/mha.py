@@ -20,6 +20,11 @@ P.V product; ``o = acc / max(l * keep, 1e-30)`` in q's type.  ``lse`` is
 ``g`` and ``do/keep`` in the input type for dv, one ``ds * scale`` rectangle
 in the input type for dq and dk.
 
+The bf16 kernels run their products on the tensor cores and copy rows
+with 16-byte ``cp.async``: ``check_alignment`` holds their inputs to
+16-byte base addresses and strides, and a CUDA tensor that breaks it
+raises.  The fp32 kernels are scalar (TF32 stays off).
+
 The dropout mask is a pure function of (seed, b, h, q, k):
 ``dropout_keep_mask`` (Philox-4x32-10, the same bits as ``csrc/philox.cuh``).
 The seed is an int64 tensor of one element on the tensors' device, so no
@@ -178,6 +183,27 @@ def _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed):
         raise ValueError("dropout needs the seed as one int64 on q's device")
 
 
+def _misaligned(t: torch.Tensor) -> bool:
+    elt = t.element_size()
+    return bool(t.data_ptr() % 16 or
+                any(st * elt % 16 for st in t.stride()[:-1]))
+
+
+def check_alignment(*tensors):
+    """Raise unless each tensor's base address and its strides other than
+    the last are multiples of 16 bytes: the bf16 kernels copy rows into
+    shared memory with 16-byte ``cp.async`` and read them with ``ldmatrix``.
+    Split views of a fused QKV or KV projection of a width that is a
+    multiple of 8 pass as they are."""
+    for t in tensors:
+        if _misaligned(t):
+            elt = t.element_size()
+            raise ValueError(
+                "the bf16 attention kernels need 16-byte aligned rows: base "
+                "address %% 16 = %d, strides %s of %d-byte elements"
+                % (t.data_ptr() % 16, tuple(t.stride()), elt))
+
+
 def _check_cuda(q, k, v, bias, num_heads, use_bias, *others):
     if q.device.type != "cuda":
         raise ValueError("the attention kernels run on CPU or CUDA tensors, "
@@ -194,6 +220,8 @@ def _check_cuda(q, k, v, bias, num_heads, use_bias, *others):
     for t in (q, k, v) + others:
         if t.stride(2) != 1:
             raise ValueError("q, k, v, o and do need a contiguous last dim")
+    if q.dtype == torch.bfloat16:
+        check_alignment(q, k, v, *others)
     if use_bias and (bias.dtype != torch.float32 or
                      not bias.is_contiguous() or bias.device != q.device):
         raise ValueError("bias must be a contiguous float32 tensor on q's "
@@ -206,8 +234,9 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
 
     q [B,Tq,H*D]; k, v [B,Tk,H*D], each with a contiguous last dim (row
     strides are free, so split views of a fused projection pass as they
-    are).  bias [B,Tk] additive (used only with ``use_bias``).  ``causal``
-    masks keys after the query (Tq == Tk).  ``rate`` > 0 drops attention
+    are; in bf16 they and the base address are 16-byte multiples).  bias
+    [B,Tk] additive (used only with ``use_bias``).  ``causal`` masks keys
+    after the query (Tq == Tk).  ``rate`` > 0 drops attention
     weights under the mask of ``seed`` (one int64 on q's device).  CPU
     tensors take the plain version; CUDA tensors launch the kernel or raise.
     """
@@ -249,8 +278,8 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
     if q.device.type == "cpu":
         return mha_backward_plain(q, k, v, bias, seed, o, lse, do, num_heads,
                                   causal, scale, use_bias, rate)
-    if do.dtype != q.dtype or do.stride(2) != 1:
-        do = do.to(q.dtype).contiguous()
+    if do.dtype != q.dtype or do.stride(2) != 1 or _misaligned(do):
+        do = do.to(q.dtype, memory_format=torch.contiguous_format, copy=True)
     _check_cuda(q, k, v, bias, num_heads, use_bias, o, do)
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != (q.shape[0], q.shape[1], num_heads) or \

@@ -21,7 +21,7 @@ from few_shot_transformer_tts_tpu.ops.pallas_attention_train import mha_train
 from few_shot_transformer_tts_torch.models.attention import MultiheadAttention
 from few_shot_transformer_tts_torch.models.common import causal_bias
 from few_shot_transformer_tts_torch.ops.mha import (
-    mha_forward, mha_forward_plain)
+    check_alignment, mha_forward, mha_forward_plain)
 from few_shot_transformer_tts_torch.train.converter import \
     state_dict_from_jax_variables
 
@@ -89,6 +89,32 @@ def test_mha_forward_takes_strided_views_of_a_fused_projection():
                                H, False, 0.125, True)
     torch.testing.assert_close(o1, o2, rtol=0, atol=0)
     torch.testing.assert_close(l1, l2, rtol=0, atol=0)
+
+
+def test_alignment_check_passes_split_views_of_fused_projections():
+    """The bf16 kernels' 16-byte rule holds for what the model hands over:
+    q, k, v split from a fused QKV, and k, v split from a fused KV."""
+    c = H * D
+    qkv = torch.zeros(2, 24, 3 * c, dtype=torch.bfloat16)
+    check_alignment(*qkv.split([c] * 3, -1))
+    q = torch.zeros(2, 24, c, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 30, 2 * c, dtype=torch.bfloat16)
+    check_alignment(q, *kv.split([c, c], -1))
+
+
+@pytest.mark.parametrize("view", ["base_offset", "row_stride",
+                                  "batch_stride"])
+def test_alignment_check_rejects_views_off_16_bytes(view):
+    c = H * D
+    if view == "base_offset":     # starts 2 bytes into a 16-byte step
+        t = torch.zeros(2, 24, c + 8, dtype=torch.bfloat16)[..., 1:1 + c]
+    elif view == "row_stride":    # rows 2 * (c + 1) bytes apart
+        t = torch.zeros(2, 24, c + 1, dtype=torch.bfloat16)[..., :c]
+    else:                         # batch rows 8 bytes off a 16-byte step
+        t = torch.zeros(2 * (24 * c + 4), dtype=torch.bfloat16).as_strided(
+            (2, 24, c), (24 * c + 4, c, 1))
+    with pytest.raises(ValueError, match="16-byte"):
+        check_alignment(t)
 
 
 def test_mha_forward_rejects_what_the_kernel_does_not_take():

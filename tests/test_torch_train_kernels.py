@@ -27,8 +27,8 @@ from few_shot_transformer_tts_torch.ops.layernorm import (
     LayerNorm, LayerNormFunction, layer_norm, layer_norm_backward,
     layer_norm_backward_plain)
 from few_shot_transformer_tts_torch.ops.mha import (
-    MhaFunction, dropout_keep_mask, mha_backward, mha_backward_plain,
-    mha_forward, mha_forward_plain, philox4x32_10)
+    MhaFunction, check_alignment, dropout_keep_mask, mha_backward,
+    mha_backward_plain, mha_forward, mha_forward_plain, philox4x32_10)
 
 H, D = 3, 64
 
@@ -213,3 +213,17 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     got = mha_backward_plain(q, k, v, bias, None, o, lse, do, H, False, 1.0,
                              True)
     assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+
+
+def test_backward_inputs_meet_the_alignment_rule():
+    """q, k, v split from a fused QKV, the forward's o and a fresh gradient
+    pass the bf16 kernels' 16-byte rule; an o shifted by 8 bytes does not."""
+    c = H * D
+    qkv = torch.from_numpy(np.random.RandomState(3).randn(
+        2, 24, 3 * c).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = qkv.split([c] * 3, -1)
+    o, lse = mha_forward(q, k, v, None, H, True, 0.125, False)
+    check_alignment(q, k, v, o, torch.ones_like(o))
+    shifted = torch.zeros(2, 24, c + 4, dtype=torch.bfloat16)[..., 4:]
+    with pytest.raises(ValueError, match="16-byte"):
+        check_alignment(q, k, v, shifted)
