@@ -268,8 +268,9 @@ def cuda_ms(fn, iters):
 
 
 def kernel_split_ms(fn, iters=10):
-    """Device ms per call of each kernel that fn launches (torch.profiler),
-    by the kernel's name up to its template arguments."""
+    """Mean device ms of each kernel that fn launches (torch.profiler), by
+    the kernel's name up to its template arguments, with the number of
+    launches the profiler recorded (it may drop some of the iters)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -278,8 +279,9 @@ def kernel_split_ms(fn, iters=10):
             fn()
         torch.cuda.synchronize()
     return {e.key.split("<")[0].split("::")[-1]:
-            e.self_device_time_total / 1e3 / iters
-            for e in device_kernels(prof)[0]}
+            {"ms": e.self_device_time_total / 1e3 / e.count,
+             "launches_recorded": e.count}
+            for e in device_kernels(prof)[0] if e.count}
 
 
 def timings(ms, plain_ms, library_ms, bound_ms):

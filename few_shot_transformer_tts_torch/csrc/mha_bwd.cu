@@ -27,11 +27,11 @@
 // and in no order, so two kernels split the work with no atomics (the sums
 // are deterministic: the same inputs give the same bits), each recomputing
 // S and P (seven products instead of five):
-//   * dq: grid (ceil(Tq/64), H, B), the forward's layout.  A block owns 64
+//   * dq: grid (H, B, ceil(Tq/64)), the forward's layout.  A block owns 64
 //     query rows (4 warps of 16), computes delta for them (and writes it for
 //     the second kernel), then streams 64-key tiles of K/V (causal: up to
 //     its last visible key).
-//   * dk/dv: grid (ceil(Tk/64), H, B).  A block owns 64 keys (4 warps of
+//   * dk/dv: grid (H, B, ceil(Tk/64)).  A block owns 64 keys (4 warps of
 //     16) and streams 64-query tiles of q, do, lse and delta (causal: from
 //     its own first key on), with dk and dv in fp32 registers.
 // bf16 (mha_bwd_dq_tc, mha_bwd_dkdv_tc) runs every product on the tensor
@@ -148,7 +148,9 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kTcBlock, h = blockIdx.y, b = blockIdx.z;
+  // grid (H, B, row blocks), the last rows (causal: the longest) first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcBlock;
   const int tq = a.tq, tk = a.tk, H = a.num_heads;
   const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * D;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * D;
@@ -345,7 +347,9 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kTcBlock, h = blockIdx.y, b = blockIdx.z;
+  // grid (H, B, key blocks): causal blocks of the first keys, the longest,
+  // start first
+  const int k0 = blockIdx.z * kTcBlock, h = blockIdx.x, b = blockIdx.y;
   const int tq = a.tq, tk = a.tk, H = a.num_heads;
   const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * D;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * D;
@@ -546,12 +550,12 @@ cudaError_t launch_tc(const Args& a, int batch, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid_q((a.tq + kTcBlock - 1) / kTcBlock, a.num_heads, batch);
+  const dim3 grid_q(a.num_heads, batch, (a.tq + kTcBlock - 1) / kTcBlock);
   mha_bwd_dq_tc<D, kDropout>
       <<<grid_q, kTcThreads, dq_tc_smem_bytes<D>(), stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_k((a.tk + kTcBlock - 1) / kTcBlock, a.num_heads, batch);
+  const dim3 grid_k(a.num_heads, batch, (a.tk + kTcBlock - 1) / kTcBlock);
   mha_bwd_dkdv_tc<D, kDropout>
       <<<grid_k, kTcThreads, dkdv_tc_smem_bytes<D>(), stream>>>(a);
   return cudaGetLastError();

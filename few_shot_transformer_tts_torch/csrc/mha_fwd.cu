@@ -26,7 +26,7 @@
 //
 // Design (bf16, mha_fwd_tc).  The TPU kernel keeps a whole K/V in VMEM; a
 // Hopper block owns 64 query rows of one (batch, head) -- grid
-// (ceil(Tq/64), H, B), 4 warps of 16 rows -- so each K/V byte staged in
+// (H, B, ceil(Tq/64)), 4 warps of 16 rows -- so each K/V byte staged in
 // shared memory serves 64 rows, and K/V stream through a two-stage ring of
 // 64-key tiles filled by 16-byte cp.async, the next tile's copy in flight
 // while this tile's math runs.  Both products run on the tensor cores
@@ -113,7 +113,11 @@ __global__ void __launch_bounds__(kTcThreads) mha_fwd_tc(FwdArgs a) {
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kTcRows, h = blockIdx.y, b = blockIdx.z;
+  // grid (H, B, row blocks): blocks start in the order of blockIdx.z,
+  // which walks the row blocks from the last, so a causal grid starts its
+  // longest blocks first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcRows;
   const int tq = a.tq, tk = a.tk, H = a.num_heads;
   const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * D;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * D;
@@ -322,7 +326,7 @@ cudaError_t launch_tc(const FwdArgs& a, int batch, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((a.tq + kTcRows - 1) / kTcRows, a.num_heads, batch);
+  const dim3 grid(a.num_heads, batch, (a.tq + kTcRows - 1) / kTcRows);
   mha_fwd_tc<D, kDropout>
       <<<grid, kTcThreads, fwd_tc_smem_bytes<D>(), stream>>>(a);
   return cudaGetLastError();
