@@ -9,8 +9,9 @@ JAX.  Phases, each printed as one JSON line on stdout (any failure is an
 uncaught exception and a non-zero exit):
 
   1. device: the card's name and power limit (nvidia-smi).
-  2. build: nvcc builds every csrc/*.cu for sm_90a, one process per source,
-     all at once; seconds and each source's ptxas resource summary.
+  2. build: nvcc builds every csrc/*.cu for sm_90a (the attention sources
+     once per head dim, 32 to 256), one process per library, all at once;
+     seconds and each library's ptxas resource summary.
   3. kernel_check: the CUDA attention forward against its plain PyTorch
      version on the card, bf16, at the three flagship synthesis call shapes
      (encoder self-attention, decoder causal, cross-attention, B=8) and edge
@@ -29,6 +30,14 @@ uncaught exception and a non-zero exit):
      3072x512 and 7168x768.  Each row: error against tolerance, kernel /
      plain / library ms, bound ms and what binds it, ms_over_library,
      bound_share, launches per train step.
+  4b. head_dim_check: the attention kernels at the head dims the flagship
+     widths give with other head counts, bf16, B=16 train shapes, as in
+     phase 4 (TOL_TRAIN, TOL_L2, a repeated backward bit-identical, kernel
+     / plain / SDPA ms, bound): n_attention_head=4 (encoder D=128, decoder
+     causal and cross D=192), 768 wide with 16 heads (D=48, padded to the
+     D=64 kernel), 512 wide with 2 heads (D=256, the 32-row tiles); D=160
+     and 224 at small shapes; one fp32 case (D=128); a head dim above 256
+     must raise ValueError.
   5. decode_kernel_check: the fused decode step (csrc/decoder_step.cu)
      against its plain PyTorch version on the card at the flagship synthesis
      shape (6 layers, C=768, 8 heads, B=8, bf16, the flagship model's
@@ -63,30 +72,33 @@ uncaught exception and a non-zero exit):
   9. train: the flagship config, bf16, weights from --seed, one synthetic
      batch at B=16, T_in=192, T_out=448.  One step at dropout 0 through the
      kernels against the same step through the plain attention and
-     LayerNorm paths (loss and every gradient leaf, bf16 and fp32); then 10
+     LayerNorm paths (loss and every gradient leaf, bf16 and fp32, with
+     8 heads and with 4: head dims 128 and 192, TOL_STEP); then 10
      Adam steps at the default dropout rates with 18 mha_forward, 18
      mha_backward and 32 layer_norm_backward calls in every step, finite
      and falling losses; sec/step, audio s/s, MFU, peak memory, and a
      torch.profiler window of one step.
   10. train_cli: ``python -m few_shot_transformer_tts_torch.train`` in-process
-     on a tiny synthetic corpus the script writes (small widths, head dims
-     64/96): 3 steps with a checkpoint, then a resume for 1 more step.
+     on a tiny synthetic corpus the script writes (small widths, 4 heads:
+     head dims 32 and 48): 3 steps with a checkpoint, then a resume for 1
+     more step.
   11. dsp_kernel_check (after phase 4): the fused STFT -> mel kernel
      (csrc/frame_mel.cu) against its plain version on voice-like audio
      from --seed: 16 utterances of 10 s (BT = 12,816 frames), 3 of 1.234 s
-     (99 frames, not a multiple of the 64-frame tile) and one of 0.4 s;
+     (99 frames) and one of 0.4 s (33 frames), one launch each;
      max and mean errors against TOL_MEL, kernel / plain ms, the rfft
      route's ms as the library time, the operations bound.  Then
      melspectrogram(use_pallas=True) against numpy's get_spectrograms on
      one utterance, and the kernel's main path: one counted batched
      melspectrogram call (melspectrogram_batch).
   12. adam_kernel_check: the fused Adam kernel (csrc/fused_adam.cu) on the
-     flagship's 37 kernel leaves (61.7M elements) against its plain
-     version, bit for bit; kernel / plain / torch.optim.Adam(fused=True)
-     ms beside the bytes bound.
+     flagship's 37 kernel leaves (61.7M elements) in one adam_leaves call,
+     one launch, against its plain version, bit for bit; kernel / plain /
+     torch.optim.Adam(fused=True) ms beside the bytes bound.
   13. train_fused_adam (after phase 9): phase 9's 10 steps with
-     use_fused_adam=True: 37 fused_adam_step launches and 18/18/32 other
-     kernel calls per step, finite and falling losses, sec/step beside
+     use_fused_adam=True: 18/18/32 attention and LayerNorm
+     kernel calls and 1 fused_adam_step launch (adam_leaves over the 37
+     leaves) per step, finite and falling losses, sec/step beside
      phase 9's, a profiled step, and one FusedAdam step against
      torch.optim.Adam loaded from its state dict (TOL_ADAM_STEP), with the
      host time of each.
@@ -130,14 +142,14 @@ from few_shot_transformer_tts_torch.ops.decode import (
     STAGES, decoder_frame_step, decoder_frame_step_plain, project_memory,
     stack_decoder_params)
 from few_shot_transformer_tts_torch.ops.fused_adam import (
-    FusedAdam, adam_leaf, adam_leaf_plain, kernel_leaf_params)
+    FusedAdam, adam_leaf_plain, adam_leaves, kernel_leaf_params)
 from few_shot_transformer_tts_torch.ops.layernorm import (
     layer_norm_backward, layer_norm_backward_plain)
 from few_shot_transformer_tts_torch.ops.mel import (
-    FRAME_TILE, fused_frame_mel, fused_frame_mel_plain, windowed_frames)
+    fused_frame_mel, fused_frame_mel_plain, windowed_frames)
 from few_shot_transformer_tts_torch.ops.mha import (
-    dropout_keep_mask, mha_backward, mha_backward_plain, mha_forward,
-    mha_forward_plain)
+    KERNEL_HEAD_DIMS, MAX_HEAD_DIM, dropout_keep_mask, kernel_head_dim,
+    mha_backward, mha_backward_plain, mha_forward, mha_forward_plain)
 from few_shot_transformer_tts_torch.train.loop import (
     device_batch, make_optimizer, step_generator, train_step)
 from few_shot_transformer_tts_torch.utils.device import resolve_device
@@ -186,7 +198,18 @@ TOL_LN = {torch.bfloat16: {"dx": 2e-2, "dgamma": 1e-3, "dbeta": 1e-3},
 # (|g_kernel - g_plain| / |g_plain| in L2 over the leaf).  bf16: the two
 # attention paths round p at different points (unnormalized in the kernel,
 # normalized in the plain path) through 12 layers forward and backward;
-# fp32: summation order only.
+# fp32: summation order only.  With 4 heads (head dims 128/192) the
+# encoder's pe_scale gradient, one scalar summed over the batch, cancels to
+# 0.0026 (0.072 with 8 heads), so every rounding on the way moves it by a
+# large share.  A leaf whose plain bf16 gradient lies further than the
+# bf16 bar from its plain fp32 gradient cancels so (four_head_agreement),
+# and is held in both dtypes to that shift over the bar, times 2 (two
+# paths, each that far from fp32), times the tolerance; no other leaf and
+# no 8-head step is widened.  On the H100 pe_scale alone qualified: plain
+# bf16 0.089 from plain fp32 (bars 0.179 bf16, 3.6e-3 fp32); the kernel
+# path read 0.124 in bf16 (0.005 with the LayerNorm kernel swapped for the
+# plain one: its bf16 roundings move the sum) and 1.1e-3 in fp32; every
+# other leaf <= 0.025 in bf16 and <= 1.2e-4 in fp32.
 TOL_STEP = {torch.bfloat16: {"loss": 1e-2, "grad": 5e-2},
             torch.float32: {"loss": 1e-5, "grad": 1e-3}}
 # Fused decode step, kernel vs plain version on the card, per case.  Both
@@ -214,14 +237,16 @@ TOL_DECODE = {
     "flagship_fp32": {"rel": 1e-5, "l2": 2e-6, "l1": 1e-5, "row": 1e-5}}
 TOL_ROW_SUM = 2e-6
 # fused_frame_mel, kernel vs plain version on the card, on the normalised
-# mel ([-4, 4]).  Both take the DFT in fp32 in other summation orders, so a
-# magnitude near a bf16 rounding boundary may round to its neighbour: one
-# bf16 ulp (0.4%) moves a mel band that bin carries alone by 0.034 dB,
-# 2.7e-3 on this scale; such flips are rare, so the mean stays small.  The
-# kernel read max <= 9.8e-4 and mean <= 1.7e-6 on the H100 (the CPU test:
-# 1.2e-3 and 2.2e-6 between the plain version and the TPU kernel in
-# interpret mode); a kernel mutant that skips the bf16 rounding of the
-# magnitude read mean 2.8e-4, one that drops 32 taps 2.7e-3.
+# mel ([-4, 4]).  The kernel's FFT and the plain version's DFT product sum
+# in fp32 in other orders, so a magnitude near a bf16 rounding boundary may
+# round to its neighbour: one bf16 ulp (0.4%) moves a mel band that bin
+# carries alone by 0.034 dB, 2.7e-3 on this scale; such flips are rare, so
+# the mean stays small.  The FFT kernel read max <= 1.8e-3 and mean <=
+# 1.5e-6 on the H100 (the DFT kernel before it 9.8e-4 and 1.7e-6; the CPU
+# test: 1.2e-3 and 2.2e-6 between the plain version and the TPU kernel in
+# interpret mode); kernel mutants: the bf16 rounding of the magnitude
+# skipped read mean 2.8e-4, a twiddle's sign flipped in one FFT stage
+# 0.59, 32 taps of the DFT kernel dropped 2.7e-3.
 TOL_MEL = {"max": 1e-2, "mean": 1e-5}
 # melspectrogram(use_pallas=True) against numpy's float64 get_spectrograms:
 # the bar of tests/test_mel_pallas.py
@@ -460,8 +485,9 @@ def check_train_attention(name, rng, b, tq, tk, c, heads, causal, lengths,
     args = (q, k, v, bias, heads, causal, scale, use_bias)
     tol = TOL_TRAIN[dtype]
     shape = {"case": name, "dtype": str(dtype), "B": b, "Tq": tq, "Tk": tk,
-             "C": c, "H": heads, "causal": causal, "bias": use_bias,
-             "launches_per_train_step": launches_per_step}
+             "C": c, "H": heads, "D": c // heads,
+             "kernel_D": kernel_head_dim(c // heads), "causal": causal,
+             "bias": use_bias, "launches_per_train_step": launches_per_step}
     qh, kh, vh, mask = sdpa_leaves(q, k, v, bias, heads, dtype)
     rows = {}
 
@@ -493,7 +519,8 @@ def check_train_attention(name, rng, b, tq, tk, c, heads, causal, lengths,
         row["tol_l2_o"] = TOL_L2["o_one_tile"] \
             if dtype == torch.bfloat16 and tk <= 64 else None
         row["ok"] = err_o <= tol and err_lse <= TOL_BF16["lse"] and \
-            (row["tol_l2_o"] is None or row["l2_err_o"] <= row["tol_l2_o"])
+            (row["tol_l2_o"] is None or row["l2_err_o"] <= row["tol_l2_o"]) \
+            and bool(torch.isfinite(o).all())
         emit(row)
         rows["forward" if rate else "forward_0"] = row
         if not row["ok"]:
@@ -630,6 +657,54 @@ def train_kernel_phase(seed):
     check_layernorm("ln_decoder_fp32", rng, 16 * 448, 768, 0,
                     dtype=torch.float32, iters=10)
     return rows
+
+
+def head_dim_phase(seed):
+    """The attention kernels at other head dims than the flagship's: the
+    flagship widths with 4 heads (D=128, 192), 768 wide with 16 heads
+    (D=48 on the D=64 kernel, padded), 512 wide with 2 heads (D=256), bf16
+    at the B=16 train shapes; the two other instantiations (D=160, 224) at
+    small shapes; one fp32 case; above 256 raises."""
+    rng = np.random.RandomState(seed + 30)
+    enc_len = rng.randint(96, 193, 16)
+    for name, c, heads, shape in (
+            ("train_encoder_h4", 512, 4, "encoder"),
+            ("train_decoder_causal_h4", 768, 4, "decoder_causal"),
+            ("train_cross_h4", 768, 4, "cross"),
+            ("train_decoder_causal_d48", 768, 16, "decoder_causal"),
+            ("train_cross_d48", 768, 16, "cross"),
+            ("train_encoder_d256", 512, 2, "encoder"),
+            ("train_decoder_causal_d256", 512, 2, "decoder_causal")):
+        tq, tk, causal, lengths, cross = {
+            "encoder": (192, 192, False, enc_len, False),
+            "decoder_causal": (448, 448, True, None, False),
+            "cross": (448, 192, False, enc_len, True)}[shape]
+        check_train_attention(name, rng, 16, tq, tk, c, heads, causal,
+                              lengths, 0, cross=cross)
+    check_train_attention("small_causal_d160", rng, 4, 200, 200, 640, 4, True,
+                          None, 0, iters=5)
+    check_train_attention("small_cross_d224", rng, 4, 200, 77, 448, 2, False,
+                          [77, 50, 1, 77], 0, cross=True, iters=5)
+    check_train_attention("train_encoder_h4_fp32", rng, 16, 192, 192, 512, 4,
+                          False, enc_len, 0, dtype=torch.float32, iters=5)
+    # above the largest instantiation: a ValueError that names the limit
+    q = torch.zeros(1, 8, 288, dtype=torch.bfloat16, device="cuda")
+    try:
+        mha_forward(q, q, q, None, 1, False, 1.0, False)
+    except ValueError as e:
+        refused = str(MAX_HEAD_DIM) in str(e)
+        message = str(e)
+    else:
+        refused, message = False, None
+    row = {"phase": "head_dim_check", "case": "head_dim_288",
+           "raised_value_error_naming_the_limit": refused,
+           "message": message,
+           "instantiation_by_head_dim": {
+               d: kernel_head_dim(d) for d in (8, 12, 32, 48, 80, 128, 192,
+                                               200, 256)}}
+    emit(row)
+    if not refused:
+        raise AssertionError("head dim 288 did not raise: %s" % row)
 
 
 # ---------------------------------------------------------------------------
@@ -892,7 +967,7 @@ def teacher_forced_check(model, plain, hp, batch, seed, t_out=448):
 KERNELS = {"mha_forward": mha_forward, "mha_backward": mha_backward,
            "layer_norm_backward": layer_norm_backward,
            "decoder_frame_step": decoder_frame_step,
-           "fused_frame_mel": fused_frame_mel, "fused_adam_step": adam_leaf}
+           "fused_frame_mel": fused_frame_mel, "fused_adam_step": adam_leaves}
 NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -1202,41 +1277,101 @@ def loss_and_grads(model, batch, hp):
                          for n, p in model.named_parameters()}
 
 
-def step_agreement(hp, seed, batch, dtype):
-    """One step at dropout 0, kernel path vs plain path on the card."""
+def step_runs(hp, state, batch, dtype):
+    """One step at dropout 0 from ``state`` on the card, through the kernels
+    and through the plain attention and LayerNorm paths (at hp's head
+    count: 8 heads give head dims 64/96, 4 give 128/192): ((loss, grads,
+    kernel calls) of the kernel path, (loss, grads) of the plain path)."""
     hp0 = hp.replace(transformer_dropout_rate=0.0, decoder_dropout_rate=0.0,
                      use_bfloat16=dtype == torch.bfloat16)
-    kernel = init_weights_(ByteToMel(hp0, device="cuda"), seed)
+    kernel = ByteToMel(hp0, device="cuda")
+    kernel.load_state_dict(state)
     plain = ByteToMel(hp0.replace(use_pallas_attention=False,
                                   use_fused_layernorm=False), device="cuda")
-    plain.load_state_dict(kernel.state_dict())
+    plain.load_state_dict(state)
     before = (mha_forward.launches, mha_backward.launches,
               layer_norm_backward.launches)
     loss_k, grads_k = loss_and_grads(kernel, batch, hp0)
     launched = (mha_forward.launches - before[0],
                 mha_backward.launches - before[1],
                 layer_norm_backward.launches - before[2])
-    loss_p, grads_p = loss_and_grads(plain, batch, hp0)
-    errs = {n: ((grads_k[n] - grads_p[n]).norm() /
-                grads_p[n].norm().clamp_min(1e-30)).item() for n in grads_p}
-    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:5]
+    return (loss_k, grads_k, launched), loss_and_grads(plain, batch, hp0)
+
+
+def leaf_rel_err(got, want):
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def step_agreement(hp, dtype, kernel, plain, widen=None):
+    """Hold a step_runs pair to TOL_STEP[dtype]; ``widen`` {leaf: (factor,
+    readings)} gives the leaves whose gradient cancels a bar of factor x
+    the tolerance (see TOL_STEP)."""
+    (loss_k, grads_k, launched), (loss_p, grads_p) = kernel, plain
+    widen = widen or {}
     tol = TOL_STEP[dtype]
+    errs = {n: leaf_rel_err(grads_k[n], grads_p[n]) for n in grads_p}
+    bars = {n: tol["grad"] * widen[n][0] if n in widen else tol["grad"]
+            for n in errs}
+    # the worst leaves with the L2 norm of their plain gradient
+    worst = [(n, e, grads_p[n].norm().item()) for n, e in
+             sorted(errs.items(), key=lambda kv: -kv[1] / bars[kv[0]])[:5]]
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     row = {"phase": "train_step_agreement", "dtype": str(dtype),
+           "n_attention_head": hp.n_attention_head,
+           "head_dims": [hp.encoder_hidden // hp.n_attention_head,
+                         hp.decoder_hidden // hp.n_attention_head],
            "loss_kernel": loss_k, "loss_plain": loss_p,
            "loss_rel_err": loss_err, "tol_loss": tol["loss"],
-           "grad_leaves": len(errs), "max_grad_rel_err": worst[0][1],
+           "grad_leaves": len(errs),
+           "max_grad_rel_err": max(errs.values()),
            "median_grad_rel_err": float(np.median(list(errs.values()))),
            "worst_leaves": worst, "tol_grad": tol["grad"],
+           "cancelling_leaves": {
+               n: {"err": errs[n], "bar": bars[n], **readings}
+               for n, (_, readings) in widen.items()},
            "kernel_calls": launched}
-    row["ok"] = loss_err <= tol["loss"] and worst[0][1] <= tol["grad"] and \
+    row["ok"] = loss_err <= tol["loss"] and \
+        all(errs[n] <= bars[n] for n in errs) and \
         launched == (18, 18, 32) and all(
             bool(torch.isfinite(g).all()) for g in grads_k.values())
     emit(row)
     if not row["ok"]:
         raise AssertionError("the kernel train step disagrees with the plain "
                              "path: %s" % row)
-    return kernel.state_dict()
+
+
+def four_head_agreement(hp, state, batch):
+    """The step with 4 heads (head dims 128/192) in bf16 and fp32, kernels
+    vs the plain attention and LayerNorm paths.  A leaf whose plain bf16
+    gradient lies further than TOL_STEP's bf16 bar from its plain fp32
+    gradient cancels: bf16 rounding alone moves it by r > that bar.  Such a
+    leaf is held, in both dtypes, to 2 r / bar times the tolerance."""
+    hp4 = hp.replace(n_attention_head=4)
+    runs = {dtype: step_runs(hp4, state, batch, dtype)
+            for dtype in (torch.bfloat16, torch.float32)}
+    plain16 = runs[torch.bfloat16][1][1]
+    plain32 = runs[torch.float32][1][1]
+    bar16 = TOL_STEP[torch.bfloat16]["grad"]
+    moved = {n: leaf_rel_err(plain16[n], plain32[n]) for n in plain32}
+    cancelling = [n for n, r in moved.items() if r > bar16]
+    # which kernel moves them in bf16: kernel attention, plain LayerNorm
+    hp_ln = hp4.replace(transformer_dropout_rate=0.0,
+                        decoder_dropout_rate=0.0, use_fused_layernorm=False)
+    attention_only = ByteToMel(hp_ln, device="cuda")
+    attention_only.load_state_dict(state)
+    grads_a = loss_and_grads(attention_only, batch, hp_ln)[1]
+    first = lambda g: g.flatten()[:3].tolist()
+    widen = {}
+    for n in cancelling:
+        widen[n] = (2 * moved[n] / bar16, {
+            "plain_bf16_vs_plain_fp32": moved[n],
+            "kernel_bf16": first(runs[torch.bfloat16][0][1][n]),
+            "plain_bf16": first(plain16[n]),
+            "kernel_attention_plain_layernorm_bf16": first(grads_a[n]),
+            "kernel_fp32": first(runs[torch.float32][0][1][n]),
+            "plain_fp32": first(plain32[n])})
+    for dtype, (kernel, plain) in runs.items():
+        step_agreement(hp4, dtype, kernel, plain, widen)
 
 
 def train_profile(model, optimizer, scheduler, batch, hp, seed, step,
@@ -1277,8 +1412,10 @@ def train_phase(seed, steps=10):
     hp = default_config()
     host = train_batch(hp, seed)
     batch = device_batch(host, hp, "cuda")
-    state = step_agreement(hp, seed, batch, torch.bfloat16)
-    step_agreement(hp, seed, batch, torch.float32)
+    state = init_weights_(ByteToMel(hp, device="cuda"), seed).state_dict()
+    for dtype in (torch.bfloat16, torch.float32):
+        step_agreement(hp, dtype, *step_runs(hp, state, batch, dtype))
+    four_head_agreement(hp, state, batch)
 
     model = ByteToMel(hp, device="cuda")
     model.load_state_dict(state)
@@ -1329,11 +1466,11 @@ def train_phase(seed, steps=10):
 # phase 10: the training CLI
 # ---------------------------------------------------------------------------
 
-# small widths with the kernels' head dims: encoder 128 / 2 heads (D=64),
-# decoder 128 + 16 + 48 = 192 / 2 heads (D=96)
+# small widths, 4 heads: encoder 128 (D=32), decoder 128 + 16 + 48 = 192
+# (D=48, on the D=64 kernel, padded)
 CLI_HPARAMS = ("embed_size=128,encoder_hidden=128,decoder_hidden=192,"
                "speaker_embedding_size=16,language_embedding_size=48,"
-               "n_attention_head=2,n_encoder_layer=2,n_decoder_layer=2,"
+               "n_attention_head=4,n_encoder_layer=2,n_decoder_layer=2,"
                "prenet_hidden=64,postnet_hidden=64,n_postnet_layer=3,"
                "max_num_speaker=8,max_num_language=8,bucket_size=16,"
                "data_warmup_steps=0,batch_frame_limit=4000,"
@@ -1471,13 +1608,15 @@ def check_mel(name, rng, b, seconds, hp, iters=20):
     pre-emphasised utterances."""
     wav = torch.from_numpy(utterances(rng, b, seconds)).cuda()
     y = dsp_torch.preemphasis(wav, hp.preemphasis)
+    before = fused_frame_mel.launches
     got = fused_frame_mel(y, hp)
+    launches = fused_frame_mel.launches - before
     want = fused_frame_mel_plain(windowed_frames(y, hp), hp)
     torch.cuda.synchronize()
     err = (got - want).abs()
     row = {"phase": "dsp_kernel_check", "case": name, "B": b,
            "seconds": seconds, "L": wav.shape[1], "T": got.shape[1],
-           "BT": b * got.shape[1], "frame_tile": FRAME_TILE,
+           "BT": b * got.shape[1], "launches_per_call": launches,
            "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
            "tol": TOL_MEL, "finite": bool(torch.isfinite(got).all()),
            "ms": cuda_ms(lambda: fused_frame_mel(y, hp), iters),
@@ -1493,6 +1632,7 @@ def check_mel(name, rng, b, seconds, hp, iters=20):
            **mel_bound(b, wav.shape[1], got.shape[1], hp)}
     row["ok"] = row["max_abs_err"] <= TOL_MEL["max"] and \
         row["mean_abs_err"] <= TOL_MEL["mean"] and row["finite"] and \
+        launches == 1 and \
         got.shape == (b, 1 + wav.shape[1] // hp.hop_length, hp.num_mels)
     emit(row)
     if not row["ok"]:
@@ -1565,8 +1705,9 @@ def ulps(got, want):
 
 
 def adam_kernel_phase(seed, iters=20):
-    """adam_leaf against adam_leaf_plain on the 37 leaves of the flagship
-    that take the kernel, at step 10 with the default betas and eps."""
+    """adam_leaves against adam_leaf_plain on the 37 leaves of the flagship
+    that take the kernel, at step 10 with the default betas and eps: one
+    launch, the same bits."""
     hp = default_config()
     shapes = flagship_kernel_leaf_shapes(hp)
     gen = torch.Generator("cuda").manual_seed(seed + 50)
@@ -1581,8 +1722,9 @@ def adam_kernel_phase(seed, iters=20):
     coef = (lr / (1 - b1 ** t), (1 - b2 ** t) ** -0.5, b1, b2, eps)
     clone = lambda xs: [x.clone() for x in xs]
     pk, mk, vk = clone(p), clone(m), clone(v)
-    for leaf in zip(pk, g, mk, vk):
-        adam_leaf(*leaf, *coef)
+    before = adam_leaves.launches
+    adam_leaves(pk, g, mk, vk, *coef)
+    launches = adam_leaves.launches - before
     pp, mp, vp = clone(p), clone(m), clone(v)
     adam_leaf_plain(pp, g, mp, vp, *coef)
     torch.cuda.synchronize()
@@ -1601,10 +1743,9 @@ def adam_kernel_phase(seed, iters=20):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = 13.0 * numel / PEAK_FLOPS_PER_S[torch.float32] * 1e3
     row = {"phase": "adam_kernel_check", "leaves": len(shapes),
-           "elements": numel, **errs, "max_abs_err": max_abs,
-           "tol_ulps": TOL_ADAM_ULPS,
-           "ms": cuda_ms(lambda: [adam_leaf(*leaf, *coef) for leaf in
-                                  zip(pk, g, mk, vk)], iters),
+           "elements": numel, "launches_per_call": launches, **errs,
+           "max_abs_err": max_abs, "tol_ulps": TOL_ADAM_ULPS,
+           "ms": cuda_ms(lambda: adam_leaves(pk, g, mk, vk, *coef), iters),
            "plain_ms": cuda_ms(lambda: adam_leaf_plain(pp, g, mp, vp, *coef),
                                max(iters // 4, 2)),
            "library_ms": cuda_ms(library.step, iters),
@@ -1613,13 +1754,14 @@ def adam_kernel_phase(seed, iters=20):
            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
            "bytes": nbytes, "flops": 13.0 * numel}
     row["ok"] = len(shapes) == 37 and numel == 61_661_184 and \
-        max(errs.values()) <= TOL_ADAM_ULPS and \
+        launches == 1 and max(errs.values()) <= TOL_ADAM_ULPS and \
         all(bool(torch.isfinite(x).all()) for x in pk)
     emit(row)
     if not row["ok"]:
-        raise AssertionError("adam_leaf disagrees with its plain version: %s"
-                             % row)
+        raise AssertionError("adam_leaves disagrees with its plain version: "
+                             "%s" % row)
     return row
+
 
 
 # ---------------------------------------------------------------------------
@@ -1671,9 +1813,10 @@ def timed_steps(optimizer, n=5):
 
 def train_fused_adam_phase(seed, state, train_sec, steps=10):
     """The flagship train step (bf16, B=16, T_in=192, T_out=448, the train
-    phase's batch) for ``steps`` steps with use_fused_adam=True: 37
-    fused_adam_step launches and 18/18/32 attention and LayerNorm kernel
-    calls per step, finite and falling losses, one step against
+    phase's batch) for ``steps`` steps with use_fused_adam=True: one
+    fused_adam_step launch (adam_leaves over the 37 kernel leaves) and
+    18/18/32 attention and LayerNorm kernel calls per step, finite and
+    falling losses, one step against
     torch.optim.Adam.  ``state``: the train phase's initial weights (None:
     made from the seed)."""
     hp = default_config(use_fused_adam=True)
@@ -1718,7 +1861,7 @@ def train_fused_adam_phase(seed, state, train_sec, steps=10):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     row["ok"] = isinstance(optimizer, FusedAdam) and \
         all(np.isfinite(losses)) and losses[-1] < losses[0] and \
-        all(c == (18, 18, 32, 37) for c in per_step) and \
+        all(c == (18, 18, 32, 1) for c in per_step) and \
         check["max_abs_param_diff"] <= TOL_ADAM_STEP
     emit(row)
     if not row["ok"]:
@@ -1811,7 +1954,8 @@ def kernel_line(name, row, err, launches, by_path):
             "library_ms": row["library_ms"]}
 
 
-PHASES = ("kernel_check", "train_kernel_check", "decode_kernel_check",
+PHASES = ("kernel_check", "train_kernel_check", "head_dim_check",
+          "decode_kernel_check",
           "dsp_kernel_check", "adam_kernel_check", "main_path",
           "main_path_fused", "vocode", "cli", "train", "train_fused_adam",
           "train_cli")
@@ -1849,15 +1993,18 @@ def main():
 
     # phase 2: build every source at once
     tic = time.perf_counter()
+    # every attention instantiation (one library per head dim), so that
+    # each run records every one's registers and spills
     libs = cuda_build.build_all()
     build_s = time.perf_counter() - tic
     ptxas = {}
-    for name, lib in libs.items():
+    for key, lib in libs.items():
         log = lib.with_suffix(".log")
+        name = key if isinstance(key, str) else "%s-d%d" % key
         ptxas[name] = [l.strip() for l in log.read_text().splitlines()
                        if "registers" in l or "spill" in l or
                        "Compiling entry" in l] if log.exists() else []
-    emit({"phase": "build", "sources": sorted(libs), "seconds": build_s,
+    emit({"phase": "build", "libraries": sorted(ptxas), "seconds": build_s,
           "ptxas": ptxas})
 
     out = {}
@@ -1865,6 +2012,8 @@ def main():
         out["kernel_check"] = kernel_phase(args.seed)
     if "train_kernel_check" in phases:
         out["train_kernel_check"] = train_kernel_phase(args.seed)
+    if "head_dim_check" in phases:
+        head_dim_phase(args.seed)
     if "dsp_kernel_check" in phases:
         out["dsp"] = dsp_kernel_phase(args.seed)
     if "adam_kernel_check" in phases:
@@ -1934,7 +2083,7 @@ def main():
                     out["dsp"]["full"]["max_abs_err"],
                     out["dsp"]["counts"]["fused_frame_mel"],
                     paths("fused_frame_mel")),
-        # use_fused_adam training: 37 leaves per step
+        # use_fused_adam training: one launch over 37 leaves per step
         kernel_line("fused_adam_step", out["adam"],
                     out["adam"]["max_abs_err"],
                     out["train_fused_adam"]["fused_adam_step"],

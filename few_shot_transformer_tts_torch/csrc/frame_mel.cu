@@ -1,41 +1,52 @@
 // Fused STFT -> mel for Hopper (sm_90a): pre-emphasised signal to the
-// normalised mel in one pass.
+// normalised mel in one pass, on a real FFT computed inside the kernel.
 //
 // Replaces the TPU kernel `fused_frame_mel`
 // (few_shot_transformer_tts_tpu/ops/mel_pallas.py, body `_mel_kernel`).  Per
-// frame t of a row (n_fft samples from t * hop of the reflect-padded signal,
-// times the Hann window):
+// frame t of a row (n_fft = 2048 samples from t * hop of the reflect-padded
+// signal, times the window):
 //
-//   re_f, im_f = sum_k x_k cos / sin(-2 pi k f / n_fft)       (fp32)
-//   mag_f      = bf16(sqrt(re_f^2 + im_f^2))                   (bf16 value)
+//   X_f        = sum_k x_k exp(-2 pi i k f / n_fft)                (fp32)
+//   mag_f      = bf16(sqrt(re(X_f)^2 + im(X_f)^2))                 (bf16 value)
 //   mel_m      = sum_f mag_f * W_fm          (W bf16 values, fp32 sums)
 //   out_m      = clip((20 log10(max(1e-5, mel_m)) - ref + max) / max,
 //                     1e-8, 1) * 2 max_abs - max_abs           (symmetric)
 //
-// Design.  The TPU kernel takes framed, windowed rows and walks the
-// frequency tiles in order, accumulating the mel block in its output.  Here
-// a block owns 64 consecutive frames of one row and loops over every
-// frequency tile itself, so nothing crosses blocks:
-//   * the block stages its stretch of the padded signal (63 hops plus the
-//     window's nonzero taps, 53.6 KB at hop 200) in shared memory once, and
-//     builds each 32-tap chunk of windowed frames from it, so the 10x
-//     overlapping [T, n_fft] frame tensor is never written anywhere;
-//   * only the window's nonzero taps are summed (799 of 2048 at the default
-//     config; the others add exact zeros), with the cos/sin table rows of
-//     those taps staged 32 x 64 at a time;
-//   * 256 threads each hold 4 frames x 4 frequencies of re and im (fp32
-//     FMA, the table values rounded to fp32 once, as in the TPU kernel);
-//   * after a 64-frequency tile the magnitudes go to shared memory rounded
-//     to bf16, and each thread adds them into 20 mel sums of one frame
-//     (fp32), so the [T, 1025] magnitude never reaches device memory;
-//   * the dB / normalise epilogue runs on the mel sums in registers.
-// About 108 KB of shared memory: two blocks per SM.
+// Design.  One warp computes one frame; the four warps of a block take
+// four neighbouring frames at a time and walk the frames of every row with
+// a grid stride, so a 0.4 s input (33 frames) spreads over 9 SMs and a
+// batch of 16 x 10 s over all of them.  Per frame, in fp32, in registers
+// and the warp's shared memory (the [BT, n_fft] frames and the [BT, 1025]
+// magnitudes never reach device memory):
+//   * the frame: the window's nonzero taps at their true offsets (first,
+//     first + taps) of the 2048, the rest zero, so the phases are those of
+//     the full n_fft DFT; packed as 1024 complex values z_n = x_2n +
+//     i x_2n+1 (a real FFT of 2048 points is a complex one of 1024);
+//   * a four-step FFT of the 1024 = 32 x 32 points: lane j takes z_{32 n1 +
+//     j}, n1 = 0..31, and runs a 32-point radix-2 FFT over n1 in registers;
+//     the products go through the twiddles W_1024^(j k1) into shared memory
+//     (rows of 33, conflict-free) and back transposed, so lane k1 runs the
+//     second 32-point FFT over j: Z_{k1 + 32 k2};
+//   * the real-FFT split step: X_f = (Z_f + conj Z_{M-f}) / 2 + W_2048^f
+//     (Z_f - conj Z_{M-f}) / 2i for f = 0..1023, X_1024 = re Z_0 - im Z_0;
+//     magnitudes rounded to bf16 as the plain version rounds them (re^2,
+//     im^2, their sum and the root each rounded once);
+//   * the mel product over the filterbank's nonzero weights only (a start
+//     bin, a length and bf16 weights per band: 2004 weights at the default
+//     config, not 1025 x 80), one band per lane, summed in bin order; the
+//     products of two bf16 values are exact in fp32, so only the summation
+//     order differs from the plain version's dense product;
+//   * the dB / normalise epilogue on the band sums.
+// Twiddles come from a host table built in float64 and rounded to fp32 once
+// (ops/mel.py fft_twiddles).  No TF32 and no bf16 in the transform: quiet
+// bins come from cancellation.  The FFT sums in another order than the
+// plain version's DFT product; only a magnitude near a bf16 rounding
+// boundary may then round to its neighbour.
 //
-// Bound.  The DFT over the nonzero taps: 2 products x 2 x BT x 799 x 1025
-// flops (42 GFLOP for 16 rows of 10 s), 0.63 ms at 67 TFLOP/s fp32; the
-// bytes (the signal read once, the mel written once, 14 MB) take 4 us.  So
-// the fp32 FMA pipes bound it; an FFT would need about 60x fewer operations
-// but sums in another order than the TPU kernel's matrix products.
+// Bound.  The signal read once and the mel written once (14 MB for 16 rows
+// of 10 s, 4 us) against the operations: a real FFT (~2.5 n log2 n per
+// frame), the magnitudes and the sparse mel product, 0.83 GFLOP, 12 us at
+// 67 TFLOP/s fp32 -- operations bound it.
 //
 // Interface: a plain C entry, built by nvcc into a shared library and loaded
 // with ctypes (few_shot_transformer_tts_torch/ops/cuda_build.py).  It
@@ -48,212 +59,234 @@
 
 namespace {
 
-constexpr int kTM = 64;       // frames per block
-constexpr int kTF = 64;       // frequencies per tile
-constexpr int kKC = 32;       // taps per chunk
-constexpr int kThreads = 256;
-constexpr int kXStride = kTM + 1;   // xs rows, padded against bank conflicts
-constexpr int kMStride = kTF + 1;   // mag rows
+constexpr int kNfft = 2048;
+constexpr int kM = kNfft / 2;    // complex points
+constexpr int kR = 32;           // kM = kR x kR: lanes x registers
+constexpr int kWarps = 4;        // frames in flight per block
+constexpr int kThreads = kWarps * 32;
+constexpr int kExStride = kR + 1;             // exchange rows, float2
+constexpr int kExFloat2 = kR * kExStride;     // >= kM: also holds Z
+constexpr int kMagFloats = kM + 4;            // 1025 magnitudes, padded
+// twiddle table (float2): W_32^j (j < 16), W_1024^(j k1) at [k1][j], then
+// W_2048^f (f < 1024)
+constexpr int kTw32 = 0;
+constexpr int kTwMid = kR / 2;
+constexpr int kTwSplit = kTwMid + kM;
+constexpr int kTwFloat2 = kTwSplit + kM;
 
-__host__ __device__ inline int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
+static_assert(kExFloat2 >= kM, "the exchange buffer holds Z");
+
+__host__ __device__ constexpr int bitrev5(int i) {
+  return ((i & 1) << 4) | ((i & 2) << 2) | (i & 4) | ((i & 8) >> 2) |
+         ((i & 16) >> 4);
 }
 
-// the stretch of signal a block reads: its 64 frames' taps, rounded up to
-// whole chunks (the padding reads zeros)
-__host__ __device__ inline int seg_floats(int hop, int taps) {
-  return round_up((kTM - 1) * hop + round_up(taps, kKC), 4);
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
 }
 
-// shared memory: seg | win | xs | cos | sin | mag (floats) | mel weights
-// (bf16)
-inline size_t smem_bytes(int hop, int taps, int n_mels) {
-  const int floats = seg_floats(hop, taps) + round_up(taps, kKC) +
-                     kKC * kXStride + 2 * kKC * kTF + kTM * kMStride;
-  return static_cast<size_t>(round_up(floats, 4)) * 4 +
-         static_cast<size_t>(kTF) * n_mels * 2;
+// One radix-2 decimation-in-frequency stage of a kR-point FFT in registers,
+// then the next: pairs SPAN apart, twiddle W_{2 SPAN}^j = W_kR^(j kR / 2SPAN).
+// After the last stage a[i] holds X[bitrev5(i)].
+template <int SPAN>
+__device__ __forceinline__ void dif_stages(float2 (&a)[kR],
+                                           const float2* tw32) {
+#pragma unroll
+  for (int g0 = 0; g0 < kR; g0 += 2 * SPAN) {
+#pragma unroll
+    for (int j = 0; j < SPAN; ++j) {
+      const float2 u = a[g0 + j], v = a[g0 + j + SPAN];
+      a[g0 + j] = make_float2(u.x + v.x, u.y + v.y);
+      const float2 d = make_float2(u.x - v.x, u.y - v.y);
+      a[g0 + j + SPAN] = j == 0 ? d : cmul(d, tw32[j * (kR / (2 * SPAN))]);
+    }
+  }
+  if constexpr (SPAN > 1) dif_stages<SPAN / 2>(a, tw32);
 }
 
-// kMels: mel sums per thread (n_mels <= 4 * kMels).
-template <int kMels>
-__global__ void __launch_bounds__(kThreads, 2)
-frame_mel_kernel(const float* __restrict__ y, long long row_stride,
-                 int n_frames, int hop, const float* __restrict__ win,
-                 int taps, const float* __restrict__ cos_t,
-                 const float* __restrict__ sin_t, int f_pad,
-                 const __nv_bfloat16* __restrict__ melw, int n_mels,
-                 float ref_db, float max_db, float max_abs, int symmetric,
-                 float* __restrict__ out) {
+// shared memory: twiddles | window taps | band (start, length, offset) |
+// per warp: exchange (float2) and magnitudes | bf16 weights
+inline size_t smem_bytes(int taps, int n_mels, int nnz) {
+  const size_t floats = 2 * kTwFloat2 + ((taps + 3) & ~3) +
+                        ((3 * n_mels + 3) & ~3) +
+                        kWarps * (2 * kExFloat2 + kMagFloats);
+  return floats * 4 + static_cast<size_t>(nnz) * 2;
+}
+
+// kBands: mel bands per lane (n_mels <= 32 * kBands).
+template <int kBands>
+__global__ void __launch_bounds__(kThreads)
+frame_mel_fft(const float* __restrict__ y, long long row_stride,
+              long long total, int n_frames, int hop,
+              const float* __restrict__ win, int first, int taps,
+              const float2* __restrict__ tw, const int* __restrict__ band,
+              const __nv_bfloat16* __restrict__ melw, int nnz, int n_mels,
+              float ref_db, float max_db, float max_abs, int symmetric,
+              float* __restrict__ out) {
   extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x;
-  const int row = blockIdx.y;
-  const int t0 = blockIdx.x * kTM;
-  const int seg_len = seg_floats(hop, taps);
-  const int taps_pad = round_up(taps, kKC);
-  float* seg = smem;                      // [seg_len]
-  float* win_s = seg + seg_len;           // [taps_pad], zero beyond taps
-  float* xs = win_s + taps_pad;           // [kKC][kXStride] windowed frames
-  float* cs = xs + kKC * kXStride;        // [kKC][kTF]
-  float* sn = cs + kKC * kTF;             // [kKC][kTF]
-  float* mag = sn + kKC * kTF;            // [kTM][kMStride]
-  __nv_bfloat16* mw = reinterpret_cast<__nv_bfloat16*>(
-      smem + round_up(seg_len + taps_pad + kKC * kXStride + 2 * kKC * kTF +
-                          kTM * kMStride, 4));   // [kTF][n_mels]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float2* tw_s = reinterpret_cast<float2*>(smem);
+  float* win_s = smem + 2 * kTwFloat2;
+  int* band_s = reinterpret_cast<int*>(win_s + ((taps + 3) & ~3));
+  float* warp_s = reinterpret_cast<float*>(band_s + ((3 * n_mels + 3) & ~3)) +
+                  warp * (2 * kExFloat2 + kMagFloats);
+  float2* ex = reinterpret_cast<float2*>(warp_s);
+  float* mag = warp_s + 2 * kExFloat2;
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(
+      reinterpret_cast<float*>(band_s + ((3 * n_mels + 3) & ~3)) +
+      kWarps * (2 * kExFloat2 + kMagFloats));
 
-  // the block's stretch of the signal; samples past the last frame read 0
-  const float* yrow = y + row * row_stride;
-  const int base = t0 * hop;
-  const int limit = (n_frames - 1) * hop + taps;
-  for (int i = tid; i < seg_len; i += kThreads)
-    seg[i] = base + i < limit ? yrow[base + i] : 0.f;
-  for (int k = tid; k < taps_pad; k += kThreads)
-    win_s[k] = k < taps ? win[k] : 0.f;
+  for (int i = tid; i < kTwFloat2; i += kThreads) tw_s[i] = tw[i];
+  for (int i = tid; i < taps; i += kThreads) win_s[i] = win[i];
+  for (int i = tid; i < 3 * n_mels; i += kThreads) band_s[i] = band[i];
+  for (int i = tid; i < nnz; i += kThreads) w_s[i] = melw[i];
+  __syncthreads();
+  const float2* tw32 = tw_s + kTw32;
 
-  const int tx = tid & 15, ty = tid >> 4;   // DFT: frames ty*4+i, freqs tx+16j
-  const int mf = tid >> 2, mg = tid & 3;    // mel: frame mf, mels mg+4j
-  float acc[kMels];
-#pragma unroll
-  for (int j = 0; j < kMels; ++j) acc[j] = 0.f;
+  for (long long gf = static_cast<long long>(blockIdx.x) * kWarps + warp;
+       gf < total; gf += static_cast<long long>(gridDim.x) * kWarps) {
+    const long long row = gf / n_frames;
+    const int t = static_cast<int>(gf - row * n_frames);
+    const float* src = y + row * row_stride + static_cast<long long>(t) * hop;
 
-  for (int f0 = 0; f0 < f_pad; f0 += kTF) {
-    float re[4][4], im[4][4];
+    // z_{32 n1 + lane} = x_2n + i x_2n+1, windowed; zero off the taps
+    float2 a[kR];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < taps; k0 += kKC) {
-      __syncthreads();   // the previous chunk (and the staging) is done
-      // windowed frames of the chunk: consecutive threads take consecutive
-      // taps of one frame
-      for (int i = tid; i < kKC * kTM; i += kThreads) {
-        const int f = i / kKC, k = i % kKC;
-        xs[k * kXStride + f] = seg[f * hop + k0 + k] * win_s[k0 + k];
-      }
-      for (int i = tid; i < kKC * kTF / 4; i += kThreads) {
-        const int k = i / (kTF / 4), c = (i % (kTF / 4)) * 4;
-        float4 cv = make_float4(0.f, 0.f, 0.f, 0.f), sv = cv;
-        if (k0 + k < taps) {
-          const long long off = (long long)(k0 + k) * f_pad + f0 + c;
-          cv = *reinterpret_cast<const float4*>(cos_t + off);
-          sv = *reinterpret_cast<const float4*>(sin_t + off);
-        }
-        *reinterpret_cast<float4*>(cs + k * kTF + c) = cv;
-        *reinterpret_cast<float4*>(sn + k * kTF + c) = sv;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kKC; ++k) {
-        float xv[4], cv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xs[k * kXStride + ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          cv[j] = cs[k * kTF + tx + 16 * j];
-          sv[j] = sn[k * kTF + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            re[i][j] = fmaf(xv[i], cv[j], re[i][j]);
-            im[i][j] = fmaf(xv[i], sv[j], im[i][j]);
-          }
-      }
+    for (int n1 = 0; n1 < kR; ++n1) {
+      const int k = 2 * (kR * n1 + lane);
+      const unsigned o0 = static_cast<unsigned>(k - first);
+      const unsigned o1 = o0 + 1u;
+      a[n1] = make_float2(o0 < static_cast<unsigned>(taps)
+                              ? src[k] * win_s[o0] : 0.f,
+                          o1 < static_cast<unsigned>(taps)
+                              ? src[k + 1] * win_s[o1] : 0.f);
     }
+    // 32-point FFTs over n1, times W_1024^(lane k1), into rows k1
+    dif_stages<kR / 2>(a, tw32);
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int k1 = bitrev5(i);
+      ex[k1 * kExStride + lane] =
+          k1 == 0 ? a[i] : cmul(a[i], tw_s[kTwMid + k1 * kR + lane]);
+    }
+    __syncwarp();
+    // 32-point FFTs over the lanes' index: lane k1 holds Z_{k1 + 32 k2}
+#pragma unroll
+    for (int n2 = 0; n2 < kR; ++n2) a[n2] = ex[lane * kExStride + n2];
+    dif_stages<kR / 2>(a, tw32);
+    __syncwarp();   // every row is read before Z overwrites it
+#pragma unroll
+    for (int i = 0; i < kR; ++i) ex[lane + kR * bitrev5(i)] = a[i];
+    __syncwarp();
 
-    // magnitudes rounded to bf16 (separate roundings of re^2, im^2 and the
-    // sum, as the plain version's tensor ops), and the tile's mel weights
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = __fadd_rn(__fmul_rn(re[i][j], re[i][j]),
-                                  __fmul_rn(im[i][j], im[i][j]));
-        mag[(ty * 4 + i) * kMStride + tx + 16 * j] =
-            __bfloat162float(__float2bfloat16_rn(__fsqrt_rn(p)));
-      }
-    for (int i = tid; i < kTF * n_mels; i += kThreads)
-      mw[i] = melw[(long long)f0 * n_mels + i];
-    __syncthreads();
+    // split step: X_f from Z_f and Z_{M-f}; magnitudes rounded to bf16
 #pragma unroll 4
-    for (int fq = 0; fq < kTF; ++fq) {
-      const float mv = mag[mf * kMStride + fq];
+    for (int j = 0; j < kR; ++j) {
+      const int f = lane + kR * j;
+      const float2 zf = ex[f], zc = ex[(kM - f) & (kM - 1)];
+      const float2 w = tw_s[kTwSplit + f];
+      // even part (Z_f + conj Z_{M-f}) / 2, odd part (Z_f - conj Z_{M-f}) / 2i
+      const float er = 0.5f * (zf.x + zc.x), ei = 0.5f * (zf.y - zc.y);
+      const float orr = 0.5f * (zf.y + zc.y), oi = 0.5f * (zc.x - zf.x);
+      const float re = er + (w.x * orr - w.y * oi);
+      const float im = ei + (w.x * oi + w.y * orr);
+      const float p = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+      mag[f] = __bfloat162float(__float2bfloat16_rn(__fsqrt_rn(p)));
+    }
+    if (lane == 0) {   // X_1024 = re Z_0 - im Z_0, real
+      const float re = ex[0].x - ex[0].y;
+      mag[kM] = __bfloat162float(
+          __float2bfloat16_rn(__fsqrt_rn(__fmul_rn(re, re))));
+    }
+    __syncwarp();
+
+    // mel bands over their nonzero weights, then dB and normalisation
+    float* orow = out + gf * n_mels;
 #pragma unroll
-      for (int j = 0; j < kMels; ++j) {
-        const int m = mg + 4 * j;
-        if (m < n_mels)
-          acc[j] = fmaf(mv, __bfloat162float(mw[fq * n_mels + m]), acc[j]);
+    for (int jb = 0; jb < kBands; ++jb) {
+      const int m = lane + 32 * jb;
+      if (m < n_mels) {
+        const int start = band_s[m], len = band_s[n_mels + m],
+                  off = band_s[2 * n_mels + m];
+        float acc = 0.f;
+        for (int i = 0; i < len; ++i)
+          acc = fmaf(mag[start + i], __bfloat162float(w_s[off + i]), acc);
+        const float db = 20.f * log10f(fmaxf(acc, 1e-5f));
+        float v = fminf(fmaxf((db - ref_db + max_db) / max_db, 1e-8f), 1.f);
+        if (symmetric) v = v * max_abs * 2.f - max_abs;
+        orow[m] = v;
       }
     }
-  }
-
-  const int t = t0 + mf;
-  if (t >= n_frames) return;
-  float* orow = out + ((long long)row * n_frames + t) * n_mels;
-#pragma unroll
-  for (int j = 0; j < kMels; ++j) {
-    const int m = mg + 4 * j;
-    if (m >= n_mels) continue;
-    const float db = 20.f * log10f(fmaxf(acc[j], 1e-5f));
-    float v = fminf(fmaxf((db - ref_db + max_db) / max_db, 1e-8f), 1.f);
-    if (symmetric) v = v * max_abs * 2.f - max_abs;
-    orow[m] = v;
+    __syncwarp();   // the buffers are read before the next frame
   }
 }
 
-template <int kMels>
-cudaError_t launch(const float* y, int rows, long long row_stride,
-                   int n_frames, int hop, const float* win, int taps,
-                   const float* cos_t, const float* sin_t, int f_pad,
-                   const __nv_bfloat16* melw, int n_mels, float ref_db,
-                   float max_db, float max_abs, int symmetric, float* out,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(hop, taps, n_mels);
+template <int kBands>
+cudaError_t launch(const float* y, long long total, long long row_stride,
+                   int n_frames, int hop, const float* win, int first,
+                   int taps, const float2* tw, const int* band,
+                   const __nv_bfloat16* melw, int nnz, int n_mels,
+                   float ref_db, float max_db, float max_abs, int symmetric,
+                   float* out, cudaStream_t stream) {
+  const size_t smem = smem_bytes(taps, n_mels, nnz);
   if (smem > 232448) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      frame_mel_kernel<kMels>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      frame_mel_fft<kBands>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_frames + kTM - 1) / kTM, rows);
-  frame_mel_kernel<kMels><<<grid, kThreads, smem, stream>>>(
-      y, row_stride, n_frames, hop, win, taps, cos_t, sin_t, f_pad, melw,
-      n_mels, ref_db, max_db, max_abs, symmetric, out);
+  // as many blocks as fit on the card at once, each walking the frames
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, frame_mel_fft<kBands>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long want = (total + kWarps - 1) / kWarps;
+  const long long fit = static_cast<long long>(sms) * per_sm;
+  const int blocks = static_cast<int>(want < fit ? want : fit);
+  frame_mel_fft<kBands><<<blocks, kThreads, smem, stream>>>(
+      y, row_stride, total, n_frames, hop, win, first, taps, tw, band, melw,
+      nnz, n_mels, ref_db, max_db, max_abs, symmetric, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// y: the first nonzero window tap of row 0 of the reflect-padded signal
-// (fp32, rows of row_stride samples; frame t of a row starts at t * hop);
-// win [taps] the window's nonzero taps; cos_t, sin_t [taps, f_pad] the DFT
-// table rows of those taps (f_pad a multiple of 64, 16-byte aligned); melw
-// [f_pad, n_mels] bf16; out [rows, n_frames, n_mels] fp32.  n_mels <= 128,
-// rows <= 65535.
+// y: row 0 of the reflect-padded signal (fp32, rows of row_stride samples;
+// frame t of a row starts at t * hop, n_fft = 2048 samples); win [taps] the
+// window's nonzero taps, the first at offset `first` of the frame
+// (first + taps <= 2048); tw [2064] float2, the twiddle table of
+// ops/mel.py fft_twiddles; band [3][n_mels] int32: each band's first bin,
+// bin count and offset into melw, its bf16 weights (nnz in all); out
+// [rows, n_frames, n_mels] fp32.  n_mels <= 128.
 extern "C" int frame_mel(const void* y, int rows, long long row_stride,
-                         int n_frames, int hop, const void* win, int taps,
-                         const void* cos_t, const void* sin_t, int f_pad,
-                         const void* melw, int n_mels, float ref_db,
+                         int n_frames, int hop, const void* win, int first,
+                         int taps, const void* tw, const void* band,
+                         const void* melw, int nnz, int n_mels, float ref_db,
                          float max_db, float max_abs, int symmetric,
                          void* out, void* stream) {
-  if (rows < 1 || rows > 65535 || n_frames < 1 || hop < 1 || taps < 1 ||
-      f_pad < kTF || f_pad % kTF != 0 || n_mels < 1 || n_mels > 128)
+  if (rows < 1 || n_frames < 1 || hop < 1 || taps < 1 || first < 0 ||
+      first + taps > kNfft || nnz < 0 || n_mels < 1 || n_mels > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total = static_cast<long long>(rows) * n_frames;
   const float* yf = static_cast<const float*>(y);
   const float* wf = static_cast<const float*>(win);
-  const float* cf = static_cast<const float*>(cos_t);
-  const float* sf = static_cast<const float*>(sin_t);
+  const float2* tf = static_cast<const float2*>(tw);
+  const int* bf = static_cast<const int*>(band);
   const __nv_bfloat16* mf = static_cast<const __nv_bfloat16*>(melw);
   float* of = static_cast<float*>(out);
   const cudaError_t err =
-      n_mels <= 80
-          ? launch<20>(yf, rows, row_stride, n_frames, hop, wf, taps, cf, sf,
-                       f_pad, mf, n_mels, ref_db, max_db, max_abs, symmetric,
-                       of, s)
-          : launch<32>(yf, rows, row_stride, n_frames, hop, wf, taps, cf, sf,
-                       f_pad, mf, n_mels, ref_db, max_db, max_abs, symmetric,
-                       of, s);
+      n_mels <= 96
+          ? launch<3>(yf, total, row_stride, n_frames, hop, wf, first, taps,
+                      tf, bf, mf, nnz, n_mels, ref_db, max_db, max_abs,
+                      symmetric, of, s)
+          : launch<4>(yf, total, row_stride, n_frames, hop, wf, first, taps,
+                      tf, bf, mf, nnz, n_mels, ref_db, max_db, max_abs,
+                      symmetric, of, s);
   return static_cast<int>(err);
 }
 

@@ -48,6 +48,23 @@
 // tensor cores would need TF32): 32-row blocks and tiles, FMA from shared
 // memory.
 //
+// Head dims.  One library per head dim D (nvcc -DHEAD_DIM=<D>, D a multiple
+// of 32 from 32 to 256; ops/cuda_build.py).  The bf16 kernels' registers
+// and shared memory grow with D, so BwdShape<D> picks, per D:
+//   * the streamed tile kT: 64 rows up to D = 192, 32 above.  A 32-row
+//     tile halves the score and dP rectangles (32 registers each, not 64)
+//     and the ring: the dk/dv kernel's (2 * 64 + 6 * kT) rows of D + 8
+//     bf16 are 206 KB at D = 192 and would pass the 227 KB a block can
+//     have at D = 224;
+//   * the dk/dv kernel's output columns DC: all D up to D = 96, D / 2
+//     above.  dk and dv of 16 keys x DC per warp take DC registers (at
+//     D = 96 already 238-243 registers in all): a key block runs as two
+//     blocks, grid z = key blocks x 2, each recomputing S and dP at full D
+//     and accumulating its half of the columns.
+// So no instantiation holds more accumulators than D = 96's: dq D/2 + 2 kT
+// (at most 160), dk/dv DC + 2 kT (at most 160).  D = 64 and 96 keep their
+// code (kT = 64, DC = D).
+//
 // Interface: a plain C entry, built by nvcc into a shared library and loaded
 // with ctypes (few_shot_transformer_tts_torch/ops/cuda_build.py).  It
 // launches both kernels on the given stream, allocates nothing (delta is a
@@ -60,6 +77,12 @@
 
 #include "philox.cuh"
 #include "tensor_core.cuh"
+
+#ifndef HEAD_DIM
+#error "build with -DHEAD_DIM=<head dim>: one library per head dim"
+#endif
+static_assert(HEAD_DIM % 32 == 0 && HEAD_DIM >= 32 && HEAD_DIM <= 256,
+              "HEAD_DIM must be a multiple of 32 from 32 to 256");
 
 namespace {
 
@@ -115,36 +138,45 @@ __device__ __forceinline__ float warp_sum(float x) {
 using bf16 = __nv_bfloat16;
 constexpr int kTcThreads = 128;  // 4 warps of 16 rows
 constexpr int kTcBlock = 64;     // rows a block owns (queries or keys)
-constexpr int kTcTile = 64;      // streamed tile (keys or queries)
 
+// the streamed tile (keys for dq, queries for dk/dv) and the dk/dv
+// kernel's output columns per block, by head dim (see the head-dim note)
 template <int D>
+struct BwdShape {
+  static constexpr int kT = D <= 192 ? 64 : 32;
+  static constexpr int kDC = D <= 96 ? D : D / 2;
+  static constexpr int kSplit = D / kDC;
+};
+
+template <int D, int kT>
 constexpr int dq_tc_smem_bytes() {
-  // qs, do [64][D+8]; k and v in two stages [2][2][64][D+8]; bias [2][64];
+  // qs, do [64][D+8]; k and v in two stages [2][2][kT][D+8]; bias [2][kT];
   // delta [64]
-  return (2 * kTcBlock + 4 * kTcTile) * (D + 8) * 2 +
-         (2 * kTcTile + kTcBlock) * 4;
+  return (2 * kTcBlock + 4 * kT) * (D + 8) * 2 + (2 * kT + kTcBlock) * 4;
 }
 
-template <int D>
+template <int D, int kT>
 constexpr int dkdv_tc_smem_bytes() {
-  // k, v [64][D+8]; q and do in two stages [2][2][64][D+8]; qs and do/keep
-  // [2][64][D+8]; lse and delta in two stages [2][2][64]
-  return (2 * kTcBlock + 6 * kTcTile) * (D + 8) * 2 + 4 * kTcTile * 4;
+  // k, v [64][D+8]; q and do in two stages [2][2][kT][D+8]; qs and do/keep
+  // [2][kT][D+8]; lse and delta in two stages [2][2][kT]
+  return (2 * kTcBlock + 6 * kT) * (D + 8) * 2 + 4 * kT * 4;
 }
 
-// dq (and delta): a block owns 64 query rows of one (batch, head)
-template <int D, bool kDropout>
+// dq (and delta): a block owns 64 query rows of one (batch, head) and
+// streams tiles of kT keys
+template <int D, int kT, bool kDropout>
 __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
   constexpr int S = D + 8;
   constexpr int kChunks = D / 8;
   constexpr int kSteps = D / 16;
   constexpr int kTiles = D / 8;
+  constexpr int kJ = kT / 8;  // 8-key column tiles of a key tile
   extern __shared__ __align__(16) unsigned char smem_tc[];
   bf16* qs_s = reinterpret_cast<bf16*>(smem_tc);
   bf16* do_s = qs_s + kTcBlock * S;
-  bf16* kv_s = do_s + kTcBlock * S;  // stage st: k at st*2*64*S, v after it
-  float* bias_s = reinterpret_cast<float*>(kv_s + 4 * kTcTile * S);
-  float* delta_s = bias_s + 2 * kTcTile;
+  bf16* kv_s = do_s + kTcBlock * S;  // stage st: k at st*2*kT*S, v after it
+  float* bias_s = reinterpret_cast<float*>(kv_s + 4 * kT * S);
+  float* delta_s = bias_s + 2 * kT;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -159,21 +191,21 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
   const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_sb + h * D;
   const float* biasb = a.bias + static_cast<long long>(b) * tk;
   const int k_end = a.causal ? min(tk, q0 + kTcBlock) : tk;
-  const int n_tiles = (k_end + kTcTile - 1) / kTcTile;
+  const int n_tiles = (k_end + kT - 1) / kT;
 
   auto load_tile = [&](int k0, int st) {
-    bf16* ks = kv_s + st * 2 * kTcTile * S;
-    bf16* vs = ks + kTcTile * S;
-    for (int c = tid; c < kTcTile * kChunks; c += kTcThreads) {
+    bf16* ks = kv_s + st * 2 * kT * S;
+    bf16* vs = ks + kT * S;
+    for (int c = tid; c < kT * kChunks; c += kTcThreads) {
       const int r = c / kChunks, col = (c % kChunks) * 8, kj = k0 + r;
       const bool in = kj < tk;
       const long long row = in ? kj : 0;
       tc::cp_async16(ks + r * S + col, kb + row * a.k_sr + col, in);
       tc::cp_async16(vs + r * S + col, vb + row * a.v_sr + col, in);
     }
-    if (a.use_bias && tid < kTcTile) {
+    if (a.use_bias && tid < kT) {
       const int kj = k0 + tid;
-      tc::cp_async4(bias_s + st * kTcTile + tid, biasb + (kj < tk ? kj : 0),
+      tc::cp_async4(bias_s + st * kT + tid, biasb + (kj < tk ? kj : 0),
                     kj < tk);
     }
     tc::cp_async_commit();
@@ -229,24 +261,24 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kTcTile, st = it & 1;
-    if (it + 1 < n_tiles) load_tile(k0 + kTcTile, st ^ 1);
+    const int k0 = it * kT, st = it & 1;
+    if (it + 1 < n_tiles) load_tile(k0 + kT, st ^ 1);
     unsigned drop = 0;  // the tile's mask, drawn while the copies fly
     if (kDropout)
-      drop = philox::tile_drop_bits(sd, k0, row0, h, b, a.threshold, t);
+      drop = philox::tile_drop_bits<kJ>(sd, k0, row0, h, b, a.threshold, t);
     if (it + 1 < n_tiles) {
       tc::cp_async_wait<1>();
     } else {
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    const bf16* ks = kv_s + st * 2 * kTcTile * S;
-    const bf16* vs = ks + kTcTile * S;
+    const bf16* ks = kv_s + st * 2 * kT * S;
+    const bf16* vs = ks + kT * S;
 
     // S = qs . k^T and dP = do . v^T
-    float s[8][4], dp[8][4];
+    float s[kJ][4], dp[kJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
@@ -255,7 +287,7 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
       tc::ldmatrix_x4(qa, tc::a_rows<S>(qs_s, warp * 16, kk * 16, lane));
       tc::ldmatrix_x4(da, tc::a_rows<S>(do_s, warp * 16, kk * 16, lane));
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < kJ / 2; ++jj) {
         uint32_t kf[4], vf[4];
         tc::ldmatrix_x4(kf, tc::b_rows<S>(ks, jj * 16, kk * 16, lane));
         tc::ldmatrix_x4(vf, tc::b_rows<S>(vs, jj * 16, kk * 16, lane));
@@ -267,15 +299,14 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
     }
 
     // dss = round(p * (dw - delta) * scale), left in s
-    const bool edge =
-        (a.causal && k0 + kTcTile > q0) || k0 + kTcTile > tk;
+    const bool edge = (a.causal && k0 + kT > q0) || k0 + kT > tk;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kc = 8 * j + 2 * t + (e & 1);
         float x = s[j][e];
-        if (a.use_bias) x += bias_s[st * kTcTile + kc];
+        if (a.use_bias) x += bias_s[st * kT + kc];
         if (edge) {
           const int kj = k0 + kc;
           if (a.causal && kj > row0 + 8 * (e >> 1)) x = kNegInf;
@@ -291,7 +322,7 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
 
     // dq += dss . k
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kJ / 2; ++kk) {
       uint32_t sa[4];
       tc::acc_to_a(sa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
@@ -326,30 +357,35 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
   }
 }
 
-// dk and dv: a block owns 64 keys of one (batch, head); rectangles are held
-// transposed, keys down and queries across.  A warp's 16 keys sit in its
-// rows of k_s and v_s in the order 0, 2, .., 14, 1, 3, .., 15, so that the
-// mma rows g and g + 8 of lane 4g + t are the neighbouring keys 2g, 2g + 1
-// and a Philox block (4 keys) is shared by two lanes, not four.
-template <int D, bool kDropout>
+// dk and dv: a block owns 64 keys of one (batch, head), and of their dk and
+// dv the DC columns from c0, and streams tiles of kT queries; rectangles
+// are held transposed, keys down and queries across.  A warp's 16 keys sit
+// in its rows of k_s and v_s in the order 0, 2, .., 14, 1, 3, .., 15, so
+// that the mma rows g and g + 8 of lane 4g + t are the neighbouring keys
+// 2g, 2g + 1 and a Philox block (4 keys) is shared by two lanes, not four.
+template <int D, int DC, int kT, bool kDropout>
 __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
   constexpr int S = D + 8;
   constexpr int kChunks = D / 8;
   constexpr int kSteps = D / 16;
-  constexpr int kTiles = D / 8;
+  constexpr int kTiles = DC / 8;  // n-tiles of this block's columns
+  constexpr int kSplit = D / DC;
+  constexpr int kJ = kT / 8;      // 8-query column tiles of a query tile
   extern __shared__ __align__(16) unsigned char smem_tc[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_tc);
   bf16* v_s = k_s + kTcBlock * S;
-  bf16* ring_s = v_s + kTcBlock * S;  // stage st: q at st*2*64*S, do after
-  bf16* qs_s = ring_s + 4 * kTcTile * S;  // round(q * scale)
-  bf16* dok_s = qs_s + kTcTile * S;       // round(do / keep)
-  float* stat_s = reinterpret_cast<float*>(dok_s + kTcTile * S);  // [2][lse, delta]
+  bf16* ring_s = v_s + kTcBlock * S;  // stage st: q at st*2*kT*S, do after
+  bf16* qs_s = ring_s + 4 * kT * S;   // round(q * scale)
+  bf16* dok_s = qs_s + kT * S;        // round(do / keep)
+  float* stat_s = reinterpret_cast<float*>(dok_s + kT * S);  // [2][lse, delta]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  // grid (H, B, key blocks): causal blocks of the first keys, the longest,
-  // start first
-  const int k0 = blockIdx.z * kTcBlock, h = blockIdx.x, b = blockIdx.y;
+  // grid (H, B, key blocks x column splits): causal blocks of the first
+  // keys, the longest, start first
+  const int k0 = (blockIdx.z / kSplit) * kTcBlock, h = blockIdx.x,
+            b = blockIdx.y;
+  const int c0 = (blockIdx.z % kSplit) * DC;
   const int tq = a.tq, tk = a.tk, H = a.num_heads;
   const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * D;
   const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * D;
@@ -358,7 +394,7 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
   const long long stat0 = static_cast<long long>(b) * tq;
   // causal: queries before the block's first key see none of its keys
   const int q_begin = a.causal ? k0 : 0;
-  const int n_tiles = (tq - q_begin + kTcTile - 1) / kTcTile;
+  const int n_tiles = (tq - q_begin + kT - 1) / kT;
 
   // the block's K and V rows (zero beyond Tk), key 16w + i at row
   // 16w + i/2 + 8(i%2), join the first tile's group
@@ -371,21 +407,23 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
     tc::cp_async16(v_s + m * S + col, vb + row * a.v_sr + col, in);
   }
   auto load_tile = [&](int q0, int st) {
-    bf16* qr = ring_s + st * 2 * kTcTile * S;
-    bf16* dr = qr + kTcTile * S;
-    for (int c = tid; c < kTcTile * kChunks; c += kTcThreads) {
+    bf16* qr = ring_s + st * 2 * kT * S;
+    bf16* dr = qr + kT * S;
+    for (int c = tid; c < kT * kChunks; c += kTcThreads) {
       const int r = c / kChunks, col = (c % kChunks) * 8, qi = q0 + r;
       const bool in = qi < tq;
       const long long row = in ? qi : 0;
       tc::cp_async16(qr + r * S + col, qb + row * a.q_sr + col, in);
       tc::cp_async16(dr + r * S + col, dob + row * a.do_sr + col, in);
     }
-    // threads 0-63 copy lse, 64-127 delta, of one query each
-    const int qi = q0 + (tid & 63);
-    const bool in = qi < tq;
-    const float* src = tid < 64 ? a.lse : a.delta;
-    tc::cp_async4(stat_s + st * 2 * kTcTile + tid,
-                  src + (stat0 + (in ? qi : 0)) * H + h, in);
+    // threads 0..kT-1 copy lse, kT..2kT-1 delta, of one query each
+    if (tid < 2 * kT) {
+      const int qi = q0 + tid % kT;
+      const bool in = qi < tq;
+      const float* src = tid < kT ? a.lse : a.delta;
+      tc::cp_async4(stat_s + st * 2 * kT + tid,
+                    src + (stat0 + (in ? qi : 0)) * H + h, in);
+    }
     tc::cp_async_commit();
   };
   load_tile(q_begin, 0);
@@ -409,21 +447,22 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int q0 = q_begin + it * kTcTile, st = it & 1;
-    if (it + 1 < n_tiles) load_tile(q0 + kTcTile, st ^ 1);
+    const int q0 = q_begin + it * kT, st = it & 1;
+    if (it + 1 < n_tiles) load_tile(q0 + kT, st ^ 1);
     unsigned drop = 0;  // the tile's mask, drawn while the copies fly
     if (kDropout)
-      drop = philox::tile_drop_bits_t(sd, key0, q0, h, b, a.threshold, g, t);
+      drop = philox::tile_drop_bits_t<kJ>(sd, key0, q0, h, b, a.threshold, g,
+                                          t);
     if (it + 1 < n_tiles) {
       tc::cp_async_wait<1>();
     } else {
       tc::cp_async_wait<0>();
     }
-    const bf16* qr = ring_s + st * 2 * kTcTile * S;
-    const bf16* dr = qr + kTcTile * S;
+    const bf16* qr = ring_s + st * 2 * kT * S;
+    const bf16* dr = qr + kT * S;
     // each thread scales the chunks its own copies brought in: q * scale
     // (and do / keep) rounded to bf16, the TPU kernel's operands
-    for (int c = tid; c < kTcTile * kChunks; c += kTcThreads) {
+    for (int c = tid; c < kT * kChunks; c += kTcThreads) {
       const int off = (c / kChunks) * S + (c % kChunks) * 8;
       *reinterpret_cast<uint4*>(qs_s + off) = tc::scale_bf16x8(
           *reinterpret_cast<const uint4*>(qr + off), a.scale);
@@ -432,13 +471,14 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
             *reinterpret_cast<const uint4*>(dr + off), a.inv_keep);
     }
     __syncthreads();
-    const float* lse_t = stat_s + st * 2 * kTcTile;
-    const float* delta_t = lse_t + kTcTile;
+    const float* lse_t = stat_s + st * 2 * kT;
+    const float* delta_t = lse_t + kT;
 
-    // S^T = k . qs^T and dP^T = v . do^T (keys down, queries across)
-    float s[8][4], dp[8][4];
+    // S^T = k . qs^T and dP^T = v . do^T (keys down, queries across), at
+    // full D whatever columns this block owns
+    float s[kJ][4], dp[kJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
@@ -447,7 +487,7 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
       tc::ldmatrix_x4(ka, tc::a_rows<S>(k_s, warp * 16, kk * 16, lane));
       tc::ldmatrix_x4(va, tc::a_rows<S>(v_s, warp * 16, kk * 16, lane));
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < kJ / 2; ++jj) {
         uint32_t qf[4], df[4];
         tc::ldmatrix_x4(qf, tc::b_rows<S>(qs_s, jj * 16, kk * 16, lane));
         tc::ldmatrix_x4(df, tc::b_rows<S>(dr, jj * 16, kk * 16, lane));
@@ -460,9 +500,9 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
 
     // g = keep ? p : 0 (left in s) and dss (left in dp)
     const bool edge = (a.causal && q0 < k0 + kTcBlock) ||
-                      q0 + kTcTile > tq || k0 + kTcBlock > tk;
+                      q0 + kT > tq || k0 + kTcBlock > tk;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kJ; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qc = 8 * j + 2 * t + (e & 1);
@@ -486,18 +526,21 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
       }
     }
 
-    // dv += round(g) . round(do / keep), dk += dss . q_raw
+    // dv += round(g) . round(do / keep), dk += dss . q_raw, over this
+    // block's columns
     const bf16* dv_b = kDropout ? dok_s : dr;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < kJ / 2; ++kk) {
       uint32_t ga[4], sa[4];
       tc::acc_to_a(ga, s[2 * kk], s[2 * kk + 1]);
       tc::acc_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DC / 16; ++dd) {
         uint32_t of[4], qf[4];
-        tc::ldmatrix_x4_trans(of, tc::bt_rows<S>(dv_b, kk * 16, dd * 16, lane));
-        tc::ldmatrix_x4_trans(qf, tc::bt_rows<S>(qr, kk * 16, dd * 16, lane));
+        tc::ldmatrix_x4_trans(
+            of, tc::bt_rows<S>(dv_b, kk * 16, c0 + dd * 16, lane));
+        tc::ldmatrix_x4_trans(
+            qf, tc::bt_rows<S>(qr, kk * 16, c0 + dd * 16, lane));
         tc::mma_bf16(dv[2 * dd], ga, of[0], of[1]);
         tc::mma_bf16(dv[2 * dd + 1], ga, of[2], of[3]);
         tc::mma_bf16(dk[2 * dd], sa, qf[0], qf[1]);
@@ -507,8 +550,8 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
     __syncthreads();  // the stage and the scaled tiles are consumed
   }
 
-  // dk and dv through this warp's rows of k_s and v_s (read by this warp
-  // only), now in key order, to 16-byte stores
+  // dk and dv (this block's columns) through this warp's rows of k_s and
+  // v_s (read by this warp only), now in key order, to 16-byte stores
   bf16* dk_s = k_s + warp * 16 * S;
   bf16* dv_s = v_s + warp * 16 * S;
 #pragma unroll
@@ -522,12 +565,13 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
   __syncwarp();
   bf16* dkb = static_cast<bf16*>(a.dk);
   bf16* dvb = static_cast<bf16*>(a.dv);
-  for (int c = lane; c < 16 * kChunks; c += 32) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
+  constexpr int kChunksC = DC / 8;
+  for (int c = lane; c < 16 * kChunksC; c += 32) {
+    const int r = c / kChunksC, col = (c % kChunksC) * 8;
     const int kj = k0 + warp * 16 + r;
     if (kj >= tk) continue;
     const long long off =
-        (static_cast<long long>(b) * tk + kj) * (H * D) + h * D + col;
+        (static_cast<long long>(b) * tk + kj) * (H * D) + h * D + c0 + col;
     *reinterpret_cast<uint4*>(dkb + off) =
         *reinterpret_cast<const uint4*>(dk_s + r * S + col);
     *reinterpret_cast<uint4*>(dvb + off) =
@@ -537,27 +581,32 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
 
 template <int D, bool kDropout>
 cudaError_t launch_tc(const Args& a, int batch, cudaStream_t stream) {
+  using Sh = BwdShape<D>;
+  constexpr int kDqSmem = dq_tc_smem_bytes<D, Sh::kT>();
+  constexpr int kDkvSmem = dkdv_tc_smem_bytes<D, Sh::kT>();
+  static_assert(kDqSmem <= 232448 && kDkvSmem <= 232448,
+                "a block takes at most 227 KB of shared memory");
+  auto* dq_kernel = mha_bwd_dq_tc<D, Sh::kT, kDropout>;
+  auto* dkdv_kernel = mha_bwd_dkdv_tc<D, Sh::kDC, Sh::kT, kDropout>;
   // dynamic shared memory above 48 KB needs the opt-in, once per kernel
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        mha_bwd_dq_tc<D, kDropout>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, dq_tc_smem_bytes<D>());
+        dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(mha_bwd_dkdv_tc<D, kDropout>,
+    err = cudaFuncSetAttribute(dkdv_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dkdv_tc_smem_bytes<D>());
+                               kDkvSmem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid_q(a.num_heads, batch, (a.tq + kTcBlock - 1) / kTcBlock);
-  mha_bwd_dq_tc<D, kDropout>
-      <<<grid_q, kTcThreads, dq_tc_smem_bytes<D>(), stream>>>(a);
+  dq_kernel<<<grid_q, kTcThreads, kDqSmem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid_k(a.num_heads, batch, (a.tk + kTcBlock - 1) / kTcBlock);
-  mha_bwd_dkdv_tc<D, kDropout>
-      <<<grid_k, kTcThreads, dkdv_tc_smem_bytes<D>(), stream>>>(a);
+  const dim3 grid_k(a.num_heads, batch,
+                    (a.tk + kTcBlock - 1) / kTcBlock * Sh::kSplit);
+  dkdv_kernel<<<grid_k, kTcThreads, kDkvSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -888,7 +937,8 @@ cudaError_t dispatch(int dtype, bool dropout, const Args& a, int batch,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 96.  Strides are in
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: HEAD_DIM, the one this
+// library was built for (any other is refused).  Strides are in
 // elements; the last dim of q, k, v, o and dout must be contiguous, and for
 // bfloat16 the base addresses and the batch and row strides of q, k, v, o
 // and dout must be multiples of 16 bytes.  bias [B, Tk] float32 (ignored unless
@@ -913,10 +963,8 @@ extern "C" int mha_bwd(int dtype, int head_dim, const void* q, const void* k,
          tq, tk, num_heads, q_sb, q_sr, k_sb, k_sr, v_sb, v_sr, o_sb, o_sr,
          do_sb, do_sr, scale, causal, use_bias, threshold, inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool drop = dropout != 0;
-  if (head_dim == 64) return dispatch<64>(dtype, drop, a, batch, s);
-  if (head_dim == 96) return dispatch<96>(dtype, drop, a, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != HEAD_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<HEAD_DIM>(dtype, dropout != 0, a, batch, s);
 }
 
 extern "C" const char* mha_bwd_error_string(int code) {

@@ -50,6 +50,17 @@
 // the reference's numerics, so fp32 keeps the scalar kernel: 32 query rows
 // per block, 32-key tiles, lane j owning key j, FMA from shared memory.
 //
+// Head dims.  One library per head dim D (nvcc -DHEAD_DIM=<D>, D a multiple
+// of 32 from 32 to 256; ops/cuda_build.py), so each build compiles one
+// instantiation.  Registers grow with D: at D <= 128 a warp holds its q
+// fragments (D/4 registers) beside the D/2 output accumulators and the 32
+// of the score tile, as at the flagship's D = 64 and 96; above 128 that
+// would pass 220 registers at D = 256, so q stays in shared memory and
+// each key tile reloads its fragments with ldmatrix (q_s is read by its own
+// warp only).  Shared memory, (64 + 4 * 64) rows of D + 8 bf16, is 169 KB
+// at D = 256.  The fp32 kernel's tiles pass 48 KB above D = 96, so there
+// its shared memory is dynamic.
+//
 // Interface: a plain C entry, built by nvcc into a shared library and loaded
 // with ctypes (few_shot_transformer_tts_torch/ops/cuda_build.py).  It
 // launches on the given stream, allocates nothing, and returns
@@ -61,6 +72,12 @@
 
 #include "philox.cuh"
 #include "tensor_core.cuh"
+
+#ifndef HEAD_DIM
+#error "build with -DHEAD_DIM=<head dim>: one library per head dim"
+#endif
+static_assert(HEAD_DIM % 32 == 0 && HEAD_DIM >= 32 && HEAD_DIM <= 256,
+              "HEAD_DIM must be a multiple of 32 from 32 to 256");
 
 namespace {
 
@@ -104,6 +121,7 @@ __global__ void __launch_bounds__(kTcThreads) mha_fwd_tc(FwdArgs a) {
   constexpr int kChunks = D / 8;   // 16-byte chunks per row
   constexpr int kSteps = D / 16;   // k-steps of q.k^T
   constexpr int kTiles = D / 8;    // n-tiles of P.V
+  constexpr bool kQRegs = D <= 128;  // q fragments held in registers
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
 
   extern __shared__ __align__(16) unsigned char smem_tc[];
@@ -158,10 +176,12 @@ __global__ void __launch_bounds__(kTcThreads) mha_fwd_tc(FwdArgs a) {
     *reinterpret_cast<uint4*>(q_s + r * S + col) = x;
   }
   __syncthreads();
-  uint32_t qf[kSteps][4];
+  uint32_t qf[kQRegs ? kSteps : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk)
-    tc::ldmatrix_x4(qf[kk], tc::a_rows<S>(q_s, warp * 16, kk * 16, lane));
+    for (int kk = 0; kk < kSteps; ++kk)
+      tc::ldmatrix_x4(qf[kk], tc::a_rows<S>(q_s, warp * 16, kk * 16, lane));
+  }
 
   float acc[kTiles][4];
 #pragma unroll
@@ -195,14 +215,22 @@ __global__ void __launch_bounds__(kTcThreads) mha_fwd_tc(FwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk)
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        tc::ldmatrix_x4(qa, tc::a_rows<S>(q_s, warp * 16, kk * 16, lane));
+      }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         uint32_t kf[4];
         tc::ldmatrix_x4(kf, tc::b_rows<S>(ks, jj * 16, kk * 16, lane));
-        tc::mma_bf16(s[2 * jj], qf[kk], kf[0], kf[1]);
-        tc::mma_bf16(s[2 * jj + 1], qf[kk], kf[2], kf[3]);
+        tc::mma_bf16(s[2 * jj], qa, kf[0], kf[1]);
+        tc::mma_bf16(s[2 * jj + 1], qa, kf[2], kf[3]);
       }
+    }
 
     // bias, then the causal and ragged masks (only the diagonal tile and
     // the last one need them)
@@ -367,11 +395,16 @@ mha_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
   static_assert(D % 32 == 0, "head dim must be a multiple of 32");
   constexpr int kDimsPerLane = D / 32;
 
-  __shared__ float q_s[kBlockQ][D];
-  __shared__ float k_s[kBlockK][D + 1];  // +1: lane j reads row j, no conflicts
-  __shared__ float v_s[kBlockK][D];
-  __shared__ float p_s[kWarps][kRowsPerWarp][kBlockK];
-  __shared__ float bias_s[kBlockK];
+  // q [32][D], k [32][D+1] (+1: lane j reads row j, no conflicts), v
+  // [32][D], p [8][4][32], bias [32], in dynamic shared memory
+  // (fwd_fp32_smem_bytes; above D = 96 it passes 48 KB)
+  extern __shared__ float smem_fp32[];
+  float(*q_s)[D] = reinterpret_cast<float(*)[D]>(smem_fp32);
+  float(*k_s)[D + 1] = reinterpret_cast<float(*)[D + 1]>(q_s + kBlockQ);
+  float(*v_s)[D] = reinterpret_cast<float(*)[D]>(k_s + kBlockK);
+  float(*p_s)[kRowsPerWarp][kBlockK] =
+      reinterpret_cast<float(*)[kRowsPerWarp][kBlockK]>(v_s + kBlockK);
+  float* bias_s = reinterpret_cast<float*>(p_s + kWarps);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -494,10 +527,26 @@ mha_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int D>
+constexpr int fwd_fp32_smem_bytes() {
+  return (kBlockQ * D + kBlockK * (D + 1) + kBlockK * D +
+          kWarps * kRowsPerWarp * kBlockK + kBlockK) * 4;
+}
+
 template <int D, bool kDropout>
 cudaError_t launch_fp32(const FwdArgs& a, int batch, cudaStream_t stream) {
+  // dynamic shared memory above 48 KB needs the opt-in, set once per kernel
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mha_fwd_fp32<D, kDropout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd_fp32_smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
   const dim3 grid((a.tq + kBlockQ - 1) / kBlockQ, a.num_heads, batch);
-  mha_fwd_fp32<D, kDropout><<<grid, kWarps * 32, 0, stream>>>(
+  mha_fwd_fp32<D, kDropout>
+      <<<grid, kWarps * 32, fwd_fp32_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.bias, a.seed,
       static_cast<float*>(a.o), a.lse, a.tq, a.tk, a.num_heads, a.q_sb,
@@ -518,7 +567,8 @@ cudaError_t dispatch(int dtype, bool dropout, const FwdArgs& a, int batch,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 64 or 96.  Strides are in
+// dtype: 0 = float32, 1 = bfloat16.  head_dim: HEAD_DIM, the one this
+// library was built for (any other is refused).  Strides are in
 // elements; the last dim of q, k, v must be contiguous, and for bfloat16
 // the base addresses and the batch and row strides must be multiples of 16
 // bytes.  bias is [B, Tk] float32 (ignored unless use_bias).  seed points at
@@ -541,10 +591,8 @@ extern "C" int mha_fwd(int dtype, int head_dim, const void* q, const void* k,
                   k_sb, k_sr, v_sb, v_sr, scale, causal, use_bias, threshold,
                   keep_prob};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool drop = dropout != 0;
-  if (head_dim == 64) return dispatch<64>(dtype, drop, a, batch, s);
-  if (head_dim == 96) return dispatch<96>(dtype, drop, a, batch, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != HEAD_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<HEAD_DIM>(dtype, dropout != 0, a, batch, s);
 }
 
 extern "C" const char* mha_fwd_error_string(int code) {

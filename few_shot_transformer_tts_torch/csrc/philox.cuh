@@ -50,11 +50,12 @@ __device__ __forceinline__ unsigned word(uint4 w, int i) {
   return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
 }
 
-// The dropped elements of one 64-wide tile in the mma accumulator layout
-// of the bf16 kernels (tensor_core.cuh): bit 4j + e is set when element e
-// of column tile j is dropped.  Each lane draws 8 Philox blocks, one per 4
-// of its 32 elements, and trades two words of each with the lane that
-// holds the other half of it.  Neither depends on shared memory, so a
+// The dropped elements of one tile of kJ 8-wide column tiles (64 or 32
+// wide) in the mma accumulator layout of the bf16 kernels
+// (tensor_core.cuh): bit 4j + e is set when element e of column tile j is
+// dropped.  Each lane draws kJ Philox blocks, one per 4 of its 4 kJ
+// elements, and trades two words of each with the lane that holds the
+// other half of it.  Neither depends on shared memory, so a
 // kernel draws them while its tile's copy is in flight.
 //
 // Forward and dq kernels: lane 4g + t holds queries row0 (elements 0, 1)
@@ -62,6 +63,7 @@ __device__ __forceinline__ unsigned word(uint4 w, int i) {
 // Those keys are words 2(t&1), 2(t&1)+1 of block (k0/4 + 2j + t/2): the
 // even lane of a pair draws the block of row0, the odd one that of
 // row0 + 8, and each hands the other the two words it needs.
+template <int kJ = 8>
 __device__ __forceinline__ unsigned tile_drop_bits(unsigned long long seed,
                                                    int k0, int row0, int h,
                                                    int b, unsigned threshold,
@@ -70,7 +72,7 @@ __device__ __forceinline__ unsigned tile_drop_bits(unsigned long long seed,
   const int q = row0 + (odd ? 8 : 0);
   unsigned drop = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kJ; ++j) {
     const uint4 w = dropout_bits(seed, (k0 >> 2) + 2 * j + (t >> 1), q, h, b);
     const unsigned own0 = odd ? w.z : w.x, own1 = odd ? w.w : w.y;
     const unsigned got0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
@@ -98,6 +100,7 @@ __device__ __forceinline__ unsigned tile_drop_bits(unsigned long long seed,
 // took 255 registers and spilled.  So here the seed passes an empty asm
 // (the round keys are derived per tile, not held through the products) and
 // four chains run at a time: 238 registers, no spill (ptxas, sm_90a).
+template <int kJ = 8>
 __device__ __forceinline__ unsigned tile_drop_bits_t(unsigned long long seed,
                                                      int key0, int q0, int h,
                                                      int b,
@@ -108,7 +111,7 @@ __device__ __forceinline__ unsigned tile_drop_bits_t(unsigned long long seed,
   asm volatile("" : "+l"(sd));
   unsigned drop = 0;
 #pragma unroll 4
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < kJ; ++j) {
     const uint4 w = dropout_bits(sd, key0 >> 2, q0 + 8 * j + 2 * t + odd, h,
                                  b);
     const unsigned own0 = odd ? w.z : w.x, own1 = odd ? w.w : w.y;

@@ -16,10 +16,12 @@ bias corrections (the JAX package computes them in fp32 on the device).
 
 Leaves are routed as in the JAX package (``fused_adam.py:143-151``): fp32
 leaves of at least 2^20 elements whose JAX-layout shape is 2-D with a minor
-dimension divisible by 128 take the kernel (``adam_leaf``: for CUDA tensors
-``csrc/fused_adam.cu``, one launch per leaf; for CPU tensors the plain
-version); all others take ``adam_leaf_plain``, the same math as PyTorch
-tensor ops (foreach over the list of leaves).  The JAX layout of an
+dimension divisible by 128 take the kernel (``adam_leaves``, the
+counterpart of the JAX package's map of the kernel over the tree: for CUDA
+tensors ``csrc/fused_adam.cu``, one launch over the whole list, up to 64
+leaves a launch; for CPU tensors the plain version); all others take
+``adam_leaf_plain``, the same math as PyTorch tensor ops (foreach over the
+list of leaves).  The JAX layout of an
 ``nn.Linear`` weight is its transpose; ``kernel_leaf_params`` applies that,
 which selects the same 37 leaves at ``default_config()`` as the JAX package.
 
@@ -91,50 +93,85 @@ def adam_leaf_plain(params, grads, exp_avgs, exp_avg_sqs, a: float, r: float,
     torch._foreach_sub_(params, update)
 
 
+def check_leaves(params, grads, exp_avgs, exp_avg_sqs):
+    """The kernel's rule for a list of leaves, checked once over the list:
+    four lists of one length; each leaf's p, g, m, v contiguous float32 of
+    one shape, 16-byte aligned, every tensor on the first one's device.
+    Returns (the 4 pointers of each leaf with elements, in p, g, m, v
+    order; their lengths); raises ValueError."""
+    n = len(params)
+    if not len(grads) == len(exp_avgs) == len(exp_avg_sqs) == n:
+        raise ValueError("params, grads, exp_avgs and exp_avg_sqs must be "
+                         "lists of one length")
+    dev = params[0].device if n else None
+    ptrs, lengths = [], []
+    for leaf in zip(params, grads, exp_avgs, exp_avg_sqs):
+        shape = leaf[0].shape
+        for t in leaf:
+            if t.device != dev or t.dtype != torch.float32 or \
+                    t.shape != shape or not t.is_contiguous() or \
+                    t.data_ptr() % 16:
+                raise ValueError(
+                    "the kernel takes contiguous, 16-byte aligned float32 "
+                    "p, g, m, v of one shape, all on %s; got %s %s %s at "
+                    "address %% 16 = %d" % (dev, t.device, t.dtype,
+                                            tuple(t.shape),
+                                            t.data_ptr() % 16))
+        if leaf[0].numel():
+            ptrs.extend(t.data_ptr() for t in leaf)
+            lengths.append(leaf[0].numel())
+    return ptrs, lengths
+
+
+def adam_leaves(params, grads, exp_avgs, exp_avg_sqs, a: float, r: float,
+                b1: float, b2: float, eps: float) -> None:
+    """One Adam step over lists of leaves, in place.  CPU tensors take the
+    plain version; CUDA tensors are checked once over the list
+    (``check_leaves``) and take one kernel launch per 64 leaves (the
+    kernel's leaf table; one launch for the flagship's 37), or raise."""
+    if not params:
+        return
+    dev = params[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError("adam_leaves runs on CPU or CUDA tensors, not %s"
+                         % dev)
+    if dev.type == "cpu":
+        return adam_leaf_plain(params, grads, exp_avgs, exp_avg_sqs, a, r,
+                               b1, b2, eps)
+    ptrs, lengths = check_leaves(params, grads, exp_avgs, exp_avg_sqs)
+    if not lengths:
+        return
+    lib = _library()
+    k = len(lengths)
+    launched = lib.adam_leaves(
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_longlong * k)(*lengths), k, a, r, b1, 1.0 - b1, b2,
+        1.0 - b2, eps, torch.cuda.current_stream(dev).cuda_stream)
+    if launched <= 0:
+        raise RuntimeError("adam_leaves launch failed: %s"
+                           % lib.adam_leaves_error_string(-launched).decode())
+    adam_leaves.launches += launched
+
+
 def adam_leaf(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
               v: torch.Tensor, a: float, r: float, b1: float, b2: float,
               eps: float) -> None:
-    """One leaf's update in place.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
-    if p.device.type == "cpu":
-        return adam_leaf_plain([p], [g], [m], [v], a, r, b1, b2, eps)
-    if p.device.type != "cuda":
-        raise ValueError("adam_leaf runs on CPU or CUDA tensors, not %s"
-                         % p.device)
-    for t in (p, g, m, v):
-        if t.device != p.device or t.dtype != torch.float32 or \
-                t.shape != p.shape or not t.is_contiguous() or \
-                t.data_ptr() % 16:
-            raise ValueError(
-                "the kernel takes contiguous, 16-byte aligned float32 p, g, "
-                "m, v of one shape on one device, got %s %s %s"
-                % (t.device, t.dtype, tuple(t.shape)))
-    if p.numel() == 0:
-        return
-    lib = _library()
-    err = lib.adam_step(p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                        v.data_ptr(), p.numel(), a, r, b1, 1.0 - b1, b2,
-                        1.0 - b2, eps,
-                        torch.cuda.current_stream(p.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("adam_step launch failed: %s"
-                           % lib.adam_step_error_string(err).decode())
-    adam_leaf.launches += 1
+    """One leaf's update in place: ``adam_leaves`` over a list of one."""
+    adam_leaves([p], [g], [m], [v], a, r, b1, b2, eps)
 
 
 # Kernel launches since the count was last reset (chip_smoke.py reads it).
-adam_leaf.launches = 0
+adam_leaves.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_adam")
-    p, f = ctypes.c_void_p, ctypes.c_float
-    lib.adam_step.argtypes = [p, p, p, p, ctypes.c_longlong, f, f, f, f, f,
-                              f, f, p]
-    lib.adam_step.restype = ctypes.c_int
-    lib.adam_step_error_string.argtypes = [ctypes.c_int]
-    lib.adam_step_error_string.restype = ctypes.c_char_p
+    p, f, i = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+    lib.adam_leaves.argtypes = [p, p, i, f, f, f, f, f, f, f, p]
+    lib.adam_leaves.restype = i
+    lib.adam_leaves_error_string.argtypes = [i]
+    lib.adam_leaves_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -189,16 +226,12 @@ class FusedAdam(torch.optim.Adam):
             a = float(group["lr"]) / (1.0 - b1 ** t)
             r = (1.0 - b2 ** t) ** -0.5
             coef = (a, r, b1, b2, float(group["eps"]))
-            plain = []
+            kernel, plain = [], []
             for p in params:
-                st = self.state[p]
-                if id(p) in self._kernel_ids:
-                    adam_leaf(p, p.grad, st["exp_avg"], st["exp_avg_sq"],
-                              *coef)
-                else:
-                    plain.append(p)
-            adam_leaf_plain(plain, [p.grad for p in plain],
-                            [self.state[p]["exp_avg"] for p in plain],
-                            [self.state[p]["exp_avg_sq"] for p in plain],
-                            *coef)
+                (kernel if id(p) in self._kernel_ids else plain).append(p)
+            for route, leaves in ((adam_leaves, kernel),
+                                  (adam_leaf_plain, plain)):
+                route(leaves, [p.grad for p in leaves],
+                      [self.state[p]["exp_avg"] for p in leaves],
+                      [self.state[p]["exp_avg_sq"] for p in leaves], *coef)
         return loss

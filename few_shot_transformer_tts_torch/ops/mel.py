@@ -14,10 +14,13 @@ and of the mel weights is part of the function, as in the TPU kernel.
 ``fused_frame_mel(y, hp)`` takes the signal: for CUDA tensors it launches
 ``csrc/frame_mel.cu``, which reads the reflect-padded signal and applies
 the window itself (the [BT, n_fft] frames and the [BT, F] magnitude never
-reach device memory), over the window's nonzero taps only; for CPU tensors
-it frames in PyTorch and takes ``fused_frame_mel_plain``, the same math on
-windowed frames (also what the tests and ``chip_smoke.py`` hold the kernel
-against).
+reach device memory) and computes the spectrum with a real FFT per frame
+(n_fft = 2048: a 32 x 32 four-step complex FFT of 1024 points and the
+real-FFT split step, twiddles from ``fft_twiddles``), then the mel product
+over the filterbank's nonzero weights (``mel_bands``); for CPU tensors it
+frames in PyTorch and takes ``fused_frame_mel_plain``, the same math on
+windowed frames with the DFT as a product (also what the tests and
+``chip_smoke.py`` hold the kernel against).
 """
 
 from __future__ import annotations
@@ -33,8 +36,8 @@ from ..config import Config
 from . import cuda_build, dsp
 from .dsp_torch import device_constant, frame_signal, normalize_db, window
 
-FRAME_TILE = 64       # frames per block of the kernel
-FREQ_TILE = 64        # frequencies per tile; the tables are padded to it
+FREQ_TILE = 64        # the DFT tables' frequencies are padded to it
+FFT_SIZE = 2048       # the n_fft the kernel's FFT takes
 _MAX_MELS = 128
 
 
@@ -65,6 +68,51 @@ def dft_mel_mats(hp: Config):
     return _mats(hp.sr, hp.n_fft, hp.num_mels)
 
 
+@functools.lru_cache(maxsize=2)
+def fft_twiddles(n_fft: int = FFT_SIZE) -> np.ndarray:
+    """The kernel's twiddle table, [16 + n_fft, 2] fp32 (re, im) built in
+    float64 and rounded once: W_32^j for j < 16 (the 32-point FFTs), then
+    W_{n_fft/2}^(j k1) at 16 + 32 k1 + j for j, k1 < 32 (the four-step
+    twiddles), then W_{n_fft}^f for f < n_fft / 2 (the real-FFT split
+    step); W_N^m = exp(-2 pi i m / N)."""
+    if n_fft != FFT_SIZE:
+        raise ValueError("the kernel's FFT takes n_fft %d, got %d"
+                         % (FFT_SIZE, n_fft))
+    m = n_fft // 2
+    j = np.arange(32)
+    ang = np.concatenate([
+        -2.0 * np.pi * np.arange(16) / 32,
+        -2.0 * np.pi * (np.outer(j, j) % m).reshape(-1) / m,
+        -2.0 * np.pi * np.arange(m) / n_fft])
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=4)
+def _bands(sr: int, n_fft: int, n_mels: int):
+    w = _mats(sr, n_fft, n_mels)[2]
+    w = torch.from_numpy(w).to(torch.bfloat16)
+    starts, lengths, weights = [], [], []
+    for m in range(n_mels):
+        nz = torch.nonzero(w[:, m]).reshape(-1)
+        first = int(nz[0]) if len(nz) else 0
+        count = int(nz[-1]) + 1 - first if len(nz) else 0
+        starts.append(first)
+        lengths.append(count)
+        weights.append(w[first:first + count, m])
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    return (np.stack([starts, lengths, offsets]).astype(np.int32),
+            torch.cat(weights))
+
+
+def mel_bands(hp: Config):
+    """The filterbank's nonzero weights, as the kernel takes them: (band
+    [3, n_mels] int32 numpy, each band's first bin, bin count and offset
+    into the weights; weights, a bf16 tensor of every band's bins in
+    order), from ``dft_mel_mats``' weights rounded to bf16 (the values the
+    plain version multiplies by)."""
+    return _bands(hp.sr, hp.n_fft, hp.num_mels)
+
+
 def _taps(hp: Config):
     """(first, count) of the window's nonzero taps."""
     nz = np.flatnonzero(dsp._padded_window(hp.win_length, hp.n_fft))
@@ -72,23 +120,34 @@ def _taps(hp: Config):
 
 
 def _on_device(hp: Config, device) -> dict:
-    """The tables on ``device`` (each copied once): cos/sin fp32, mel
-    weights bf16, and the kernel's slices over the nonzero taps."""
+    """The plain version's tables on ``device`` (each copied once): cos/sin
+    fp32 and the mel weights bf16."""
     key = (hp.sr, hp.n_fft, hp.num_mels, hp.win_length)
-    first, count = _taps(hp)
     mats = lambda i: (lambda: dft_mel_mats(hp)[i])
-    taps = lambda i: (lambda: dft_mel_mats(hp)[i][first:first + count])
     return {
         "cos": device_constant(("dft_cos",) + key, mats(0), device),
         "sin": device_constant(("dft_sin",) + key, mats(1), device),
         "mel_w": device_constant(("dft_mel_w",) + key, mats(2), device,
-                                 torch.bfloat16),
-        "cos_taps": device_constant(("dft_cos_taps",) + key, taps(0), device),
-        "sin_taps": device_constant(("dft_sin_taps",) + key, taps(1),
-                                    device),
+                                 torch.bfloat16)}
+
+
+def _kernel_tables(hp: Config, device) -> dict:
+    """The kernel's tables on ``device`` (each copied once): the window's
+    nonzero taps, the twiddles and the sparse mel bands."""
+    key = (hp.sr, hp.n_fft, hp.num_mels, hp.win_length)
+    first, count = _taps(hp)
+    return {
         "win_taps": device_constant(
             ("win_taps",) + key, lambda: dsp._padded_window(
                 hp.win_length, hp.n_fft)[first:first + count], device),
+        "twiddles": device_constant(("fft_twiddles", hp.n_fft),
+                                    lambda: fft_twiddles(hp.n_fft), device),
+        "band": device_constant(("mel_band",) + key,
+                                lambda: mel_bands(hp)[0], device,
+                                torch.int32),
+        "band_w": device_constant(
+            ("mel_band_w",) + key,
+            lambda: mel_bands(hp)[1].float().numpy(), device, torch.bfloat16),
         "first": first, "count": count}
 
 
@@ -124,6 +183,9 @@ def fused_frame_mel(y: torch.Tensor, hp: Config) -> torch.Tensor:
     if not 1 <= hp.num_mels <= _MAX_MELS:
         raise ValueError("the kernel takes 1 to %d mels, got %d"
                          % (_MAX_MELS, hp.num_mels))
+    if hp.n_fft != FFT_SIZE:
+        raise ValueError("the kernel's FFT takes n_fft %d, got %d"
+                         % (FFT_SIZE, hp.n_fft))
     length = y.shape[-1]
     half = hp.n_fft // 2
     if length <= half:
@@ -132,18 +194,17 @@ def fused_frame_mel(y: torch.Tensor, hp: Config) -> torch.Tensor:
     rows = y.reshape(-1, length).float()
     padded = F.pad(rows, (half, half), mode="reflect").contiguous()
     n_frames = 1 + (padded.shape[1] - hp.n_fft) // hp.hop_length
-    m = _on_device(hp, y.device)
+    m = _kernel_tables(hp, y.device)
     out = torch.empty((rows.shape[0], n_frames, hp.num_mels),
                       dtype=torch.float32, device=y.device)
     if rows.shape[0]:
         lib = _library()
         err = lib.frame_mel(
-            padded.data_ptr() + 4 * m["first"], rows.shape[0],
-            padded.shape[1], n_frames, hp.hop_length,
-            m["win_taps"].data_ptr(), m["count"], m["cos_taps"].data_ptr(),
-            m["sin_taps"].data_ptr(), m["cos"].shape[1],
-            m["mel_w"].data_ptr(), hp.num_mels, float(hp.ref_db),
-            float(hp.max_db), float(hp.max_abs_value),
+            padded.data_ptr(), rows.shape[0], padded.shape[1], n_frames,
+            hp.hop_length, m["win_taps"].data_ptr(), m["first"], m["count"],
+            m["twiddles"].data_ptr(), m["band"].data_ptr(),
+            m["band_w"].data_ptr(), m["band_w"].numel(), hp.num_mels,
+            float(hp.ref_db), float(hp.max_db), float(hp.max_abs_value),
             int(bool(hp.symmetric_mel)), out.data_ptr(),
             torch.cuda.current_stream(y.device).cuda_stream)
         if err != 0:
@@ -161,8 +222,8 @@ fused_frame_mel.launches = 0
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("frame_mel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.frame_mel.argtypes = [p, i, ctypes.c_longlong, i, i, p, i, p, p, i,
-                              p, i, f, f, f, i, p, p]
+    lib.frame_mel.argtypes = [p, i, ctypes.c_longlong, i, i, p, i, i, p, p,
+                              p, i, i, f, f, f, i, p, p]
     lib.frame_mel.restype = i
     lib.frame_mel_error_string.argtypes = [i]
     lib.frame_mel_error_string.restype = ctypes.c_char_p

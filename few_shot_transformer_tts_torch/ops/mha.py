@@ -25,6 +25,16 @@ with 16-byte ``cp.async``: ``check_alignment`` holds their inputs to
 16-byte base addresses and strides, and a CUDA tensor that breaks it
 raises.  The fp32 kernels are scalar (TF32 stays off).
 
+Head dims.  The kernels are instantiated for every head dim that is a
+multiple of 32 from 32 to 256 (``KERNEL_HEAD_DIMS``), one library per head
+dim, built when a run first meets it (``cuda_build``).  Any other head dim
+up to 256 runs on the instantiation of the next multiple of 32
+(``kernel_head_dim``): the wrapper zero-pads each head's channels of q, k,
+v (and o, do) and slices the outputs back (``pad_heads``, ``unpad_heads``).
+That is exact: zero channels add nothing to q.k and give zero output
+columns, and the caller's softmax scale is passed as it is.  A head dim
+above 256 raises ``ValueError``.
+
 The dropout mask is a pure function of (seed, b, h, q, k):
 ``dropout_keep_mask`` (Philox-4x32-10, the same bits as ``csrc/philox.cuh``).
 The seed is an int64 tensor of one element on the tensors' device, so no
@@ -42,7 +52,8 @@ from . import cuda_build
 
 NEG_INF = -1e20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 96)
+KERNEL_HEAD_DIMS = cuda_build.HEAD_DIMS
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 
 # Philox-4x32-10 constants (csrc/philox.cuh)
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -58,6 +69,35 @@ def _split_heads_f32(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 def _combine_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     b, h, t, d = x.shape
     return x.transpose(1, 2).reshape(b, t, h * d).to(dtype)
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim of the kernel instantiation that runs head dim ``d``:
+    ``d`` rounded up to a multiple of 32; raises above ``MAX_HEAD_DIM``."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError("the attention kernels take head dims 1 to %d, "
+                         "got %d" % (MAX_HEAD_DIM, d))
+    return -(-d // 32) * 32
+
+
+def pad_heads(x: torch.Tensor, num_heads: int, dp: int) -> torch.Tensor:
+    """[B, T, H*D] -> [B, T, H*dp], each head's channels zero-padded from D
+    to dp (x itself when D == dp)."""
+    b, t, c = x.shape
+    d = c // num_heads
+    if d == dp:
+        return x
+    return torch.nn.functional.pad(x.reshape(b, t, num_heads, d),
+                                   (0, dp - d)).reshape(b, t, num_heads * dp)
+
+
+def unpad_heads(x: torch.Tensor, num_heads: int, d: int) -> torch.Tensor:
+    """[B, T, H*dp] -> [B, T, H*d], the first d channels of each head."""
+    b, t, c = x.shape
+    if c == num_heads * d:
+        return x
+    return x.reshape(b, t, num_heads, c // num_heads)[..., :d].reshape(
+        b, t, num_heads * d)
 
 
 def dropout_threshold(rate: float) -> int:
@@ -146,7 +186,10 @@ def mha_backward_plain(q, k, v, bias, seed, o, lse, do, num_heads: int,
     b, tq, _ = q.shape
     inv_keep = 1.0 / (1.0 - rate)
     doh = _split_heads_f32(do.to(dt), num_heads)
-    delta = (doh * _split_heads_f32(o, num_heads)).sum(-1, keepdim=True)
+    # rowsum(do . o) as a product with one output: its sum does not depend
+    # on how many zero channels follow, so padded heads give the same bits
+    delta = torch.matmul(doh.unsqueeze(-2),
+                         _split_heads_f32(o, num_heads).unsqueeze(-1))[..., 0]
     s = _scores(q, k, bias, num_heads, causal, scale, use_bias)
     p = torch.exp(s - lse.transpose(1, 2)[..., None])
     g, dw = p, torch.matmul(doh, _split_heads_f32(v, num_heads)
@@ -212,15 +255,14 @@ def _check_cuda(q, k, v, bias, num_heads, use_bias, *others):
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("the kernel takes float32 or bfloat16 q/k/v of one "
                          "type, got %s %s %s" % (q.dtype, k.dtype, v.dtype))
-    if d not in _HEAD_DIMS:
-        raise ValueError("the kernel takes head dim 64 or 96, got %d" % d)
+    padded = kernel_head_dim(d) != d
     for t in (k, v) + others:
         if t.device != q.device:
             raise ValueError("every tensor must lie on q's device")
     for t in (q, k, v) + others:
         if t.stride(2) != 1:
             raise ValueError("q, k, v, o and do need a contiguous last dim")
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and not padded:   # padded: fresh copies
         check_alignment(q, k, v, *others)
     if use_bias and (bias.dtype != torch.float32 or
                      not bias.is_contiguous() or bias.device != q.device):
@@ -238,16 +280,21 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
     [B,Tk] additive (used only with ``use_bias``).  ``causal`` masks keys
     after the query (Tq == Tk).  ``rate`` > 0 drops attention
     weights under the mask of ``seed`` (one int64 on q's device).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or raise.
+    tensors take the plain version; CUDA tensors launch the kernel of the
+    head dim rounded up to a multiple of 32 (padding each head, see the
+    module's note) or raise.
     """
     _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
     if q.device.type == "cpu":
         return mha_forward_plain(q, k, v, bias, num_heads, causal, scale,
                                  use_bias, rate, seed)
     _check_cuda(q, k, v, bias, num_heads, use_bias)
+    d = q.shape[2] // num_heads
+    dp = kernel_head_dim(d)
+    q, k, v = (pad_heads(t, num_heads, dp) for t in (q, k, v))
     b, tq, c = q.shape
     tk = k.shape[1]
-    lib = _library("mha_fwd")
+    lib = _library("mha_fwd", dp)
     o = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, tq, num_heads), dtype=torch.float32, device=q.device)
     err = lib.mha_fwd(
@@ -262,7 +309,7 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
         raise RuntimeError("mha_fwd launch failed: %s"
                            % lib.mha_fwd_error_string(err).decode())
     mha_forward.launches += 1
-    return o, lse
+    return unpad_heads(o, num_heads, d), lse
 
 
 def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
@@ -272,7 +319,8 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
 
     Takes the forward's inputs and its (o, lse), and ``do`` [B,Tq,H*D].  The
     bias gets no gradient.  CPU tensors take the plain version; CUDA tensors
-    launch the two kernels of ``csrc/mha_bwd.cu`` (counted as one call) or
+    launch the two kernels of ``csrc/mha_bwd.cu`` (counted as one call; a
+    head dim that is not a multiple of 32 padded as in ``mha_forward``) or
     raise."""
     _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
     if q.device.type == "cpu":
@@ -286,9 +334,12 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
             lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("o and do must be [B,Tq,C] and lse a contiguous "
                          "float32 [B,Tq,H]")
+    d = q.shape[2] // num_heads
+    dp = kernel_head_dim(d)
+    q, k, v, o, do = (pad_heads(t, num_heads, dp) for t in (q, k, v, o, do))
     b, tq, c = q.shape
     tk = k.shape[1]
-    lib = _library("mha_bwd")
+    lib = _library("mha_bwd", dp)
     dq = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
@@ -309,7 +360,7 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
         raise RuntimeError("mha_bwd launch failed: %s"
                            % lib.mha_bwd_error_string(err).decode())
     mha_backward.launches += 1
-    return dq, dk, dv
+    return tuple(unpad_heads(t, num_heads, d) for t in (dq, dk, dv))
 
 
 # Kernel launches since the count was last reset (tests and chip_smoke.py
@@ -351,8 +402,8 @@ _ERROR_STRINGS = {"mha_fwd": "mha_fwd_error_string",
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
-    lib = cuda_build.load(name)
+def _library(name: str, head_dim: int) -> ctypes.CDLL:
+    lib = cuda_build.load(name, head_dim)
     p, i, u, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                       ctypes.c_float, ctypes.c_longlong)
     if name == "mha_fwd":

@@ -1,9 +1,12 @@
 """The port's attention: ``mha_forward`` (CPU path, the kernel's plain
 version) against the JAX package's Pallas kernel ``mha_train`` in interpret
-mode, and the port's ``MultiheadAttention`` against the JAX module.
+mode (head dims 64, and 32, 48 and 128), the head-dim rule of the CUDA
+kernels and the padding it implies, and the port's ``MultiheadAttention``
+against the JAX module.
 
 Tolerances: fp32 throughout; 2e-5 for the kernel counterpart (as the JAX
-package's own kernel tests), 1e-5 for the module paths.
+package's own kernel tests), 1e-5 for the module paths; padded heads give
+the unpadded plain result bit for bit.
 """
 
 import jax
@@ -20,19 +23,22 @@ from few_shot_transformer_tts_tpu.models.common import \
 from few_shot_transformer_tts_tpu.ops.pallas_attention_train import mha_train
 from few_shot_transformer_tts_torch.models.attention import MultiheadAttention
 from few_shot_transformer_tts_torch.models.common import causal_bias
+from few_shot_transformer_tts_torch.ops import cuda_build
 from few_shot_transformer_tts_torch.ops.mha import (
-    check_alignment, mha_forward, mha_forward_plain)
+    KERNEL_HEAD_DIMS, MAX_HEAD_DIM, check_alignment, kernel_head_dim,
+    mha_backward_plain, mha_forward, mha_forward_plain, pad_heads,
+    unpad_heads)
 from few_shot_transformer_tts_torch.train.converter import \
     state_dict_from_jax_variables
 
 H, D = 3, 64
 
 
-def _qkv(b, tq, tk, seed, valid=None):
+def _qkv(b, tq, tk, seed, valid=None, d=D):
     rng = np.random.RandomState(seed)
-    q = (rng.randn(b, tq, H * D) * 0.3).astype(np.float32)
-    k = (rng.randn(b, tk, H * D) * 0.3).astype(np.float32)
-    v = rng.randn(b, tk, H * D).astype(np.float32)
+    q = (rng.randn(b, tq, H * d) * 0.3).astype(np.float32)
+    k = (rng.randn(b, tk, H * d) * 0.3).astype(np.float32)
+    v = rng.randn(b, tk, H * d).astype(np.float32)
     valid = valid if valid is not None else [tk] * b
     bias = np.where(np.arange(tk)[None, :] < np.asarray(valid)[:, None],
                     0.0, -1e20).astype(np.float32)
@@ -40,10 +46,10 @@ def _qkv(b, tq, tk, seed, valid=None):
 
 
 def _lse_reference(q, k, bias, scale, causal):
-    b, tq, _ = q.shape
+    b, tq, c = q.shape
     tk = k.shape[1]
-    qh = q.reshape(b, tq, H, D).astype(np.float64) * scale
-    kh = k.reshape(b, tk, H, D).astype(np.float64)
+    qh = q.reshape(b, tq, H, c // H).astype(np.float64) * scale
+    kh = k.reshape(b, tk, H, c // H).astype(np.float64)
     s = np.einsum("bqhd,bkhd->bhqk", qh, kh)
     if causal:
         s = np.where(np.tril(np.ones((tq, tk), bool)), s, -1e20)
@@ -52,14 +58,17 @@ def _lse_reference(q, k, bias, scale, causal):
     return logsumexp(s, axis=-1).transpose(0, 2, 1)       # [B, Tq, H]
 
 
-@pytest.mark.parametrize("b,tq,tk,causal,scale,valid", [
-    (2, 50, 70, False, 1.0, [70, 40]),
-    (2, 40, 40, True, 0.125, None),
-    (1, 600, 600, False, 0.125, [570]),
-], ids=["bias", "causal", "tq600"])
+@pytest.mark.parametrize("b,tq,tk,causal,scale,valid,d", [
+    (2, 50, 70, False, 1.0, [70, 40], 64),
+    (2, 40, 40, True, 0.125, None, 64),
+    (1, 600, 600, False, 0.125, [570], 64),
+    (2, 50, 70, False, 32 ** -0.5, [70, 40], 32),
+    (2, 40, 40, True, 48 ** -0.5, None, 48),
+    (2, 37, 45, False, 128 ** -0.5, [45, 20], 128),
+], ids=["bias", "causal", "tq600", "d32_bias", "d48_causal", "d128_bias"])
 def test_mha_forward_matches_pallas_interpret(b, tq, tk, causal, scale,
-                                              valid):
-    q, k, v, bias = _qkv(b, tq, tk, seed=tq, valid=valid)
+                                              valid, d):
+    q, k, v, bias = _qkv(b, tq, tk, seed=tq, valid=valid, d=d)
     use_bias = not causal
     bias_in = bias if use_bias else np.zeros_like(bias)
     want = mha_train(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -70,7 +79,7 @@ def test_mha_forward_matches_pallas_interpret(b, tq, tk, causal, scale,
                          torch.from_numpy(v), torch.from_numpy(bias), H,
                          causal, scale, use_bias)
     assert mha_forward.launches == before      # CPU tensors: no kernel
-    assert o.shape == (b, tq, H * D) and lse.shape == (b, tq, H)
+    assert o.shape == (b, tq, H * d) and lse.shape == (b, tq, H)
     np.testing.assert_allclose(o.numpy(), np.asarray(want), atol=2e-5)
     np.testing.assert_allclose(lse.numpy(),
                                _lse_reference(q, k, bias, scale, causal),
@@ -115,6 +124,72 @@ def test_alignment_check_rejects_views_off_16_bytes(view):
             (2, 24, c), (24 * c + 4, c, 1))
     with pytest.raises(ValueError, match="16-byte"):
         check_alignment(t)
+
+
+def test_head_dim_rule_picks_the_next_multiple_of_32():
+    """Which instantiation takes which head dim, checked without building:
+    a multiple of 32 up to 256 runs as it is, any other D up to 256 on the
+    next multiple of 32 (padded), and above 256 nothing."""
+    assert KERNEL_HEAD_DIMS == (32, 64, 96, 128, 160, 192, 224, 256)
+    assert MAX_HEAD_DIM == 256
+    for d in range(1, MAX_HEAD_DIM + 1):
+        k = kernel_head_dim(d)
+        assert k in KERNEL_HEAD_DIMS and d <= k < d + 32, d
+        assert (k == d) == (d % 32 == 0), d
+    assert [kernel_head_dim(d) for d in (8, 12, 48, 80, 96, 100, 200)] == \
+        [32, 32, 64, 96, 96, 128, 224]
+    for d in (257, 288, 512, 0):
+        with pytest.raises(ValueError, match="1 to 256"):
+            kernel_head_dim(d)
+    # one library per (source, head dim), named and hashed by it, and a
+    # per-head-dim source without one is refused before any build
+    paths = {cuda_build.library_path(name, d)
+             for name in cuda_build.HEAD_DIM_SOURCES
+             for d in KERNEL_HEAD_DIMS}
+    assert len(paths) == 2 * len(KERNEL_HEAD_DIMS)
+    assert cuda_build.library_path("mha_fwd", 128).name.startswith(
+        "libmha_fwd-d128-")
+    with pytest.raises(ValueError, match="once per head dim"):
+        cuda_build.load("mha_bwd")
+    with pytest.raises(ValueError, match="without a head dim"):
+        cuda_build.load("fused_adam", 64)
+
+
+@pytest.mark.parametrize("d", [8, 12, 48])
+@pytest.mark.parametrize("causal,rate", [(False, 0.0), (True, 0.1)],
+                         ids=["bias", "causal_dropout"])
+def test_padded_heads_give_the_unpadded_result_bit_for_bit(d, causal, rate):
+    """The kernels' padding, around the plain versions in fp32: zero channels
+    add nothing to q.k, give zero output columns and zero gradient columns,
+    and the softmax scale is the caller's, so slicing the padded result
+    back gives the unpadded result's bits (o, lse, dq, dk, dv)."""
+    b, t = 2, 45
+    q, k, v, bias = (torch.from_numpy(a) for a in _qkv(
+        b, t, t, seed=d, valid=[t, 30], d=d))
+    do = torch.from_numpy(np.random.RandomState(d + 1).randn(
+        b, t, H * d).astype(np.float32))
+    seed = torch.tensor([424242], dtype=torch.int64)
+    use_bias, scale = not causal, d ** -0.5
+    dp = kernel_head_dim(d)
+    pad = lambda x: pad_heads(x, H, dp)
+    assert pad(q).shape == (b, t, H * dp)
+    assert not pad(q).reshape(b, t, H, dp)[..., d:].any()
+    torch.testing.assert_close(unpad_heads(pad(q), H, d), q, rtol=0, atol=0)
+
+    o, lse = mha_forward_plain(q, k, v, bias, H, causal, scale, use_bias,
+                               rate, seed)
+    op, lsep = mha_forward_plain(pad(q), pad(k), pad(v), bias, H, causal,
+                                 scale, use_bias, rate, seed)
+    assert not op.reshape(b, t, H, dp)[..., d:].any()
+    assert torch.equal(unpad_heads(op, H, d), o) and torch.equal(lsep, lse)
+    grads = mha_backward_plain(q, k, v, bias, seed, o, lse, do, H, causal,
+                               scale, use_bias, rate)
+    padded = mha_backward_plain(pad(q), pad(k), pad(v), bias, seed, op,
+                                lsep, pad(do), H, causal, scale, use_bias,
+                                rate)
+    for g, gp, name in zip(grads, padded, ("dq", "dk", "dv")):
+        assert not gp.reshape(b, t, H, dp)[..., d:].any(), name
+        assert torch.equal(unpad_heads(gp, H, d), g), name
 
 
 def test_mha_forward_rejects_what_the_kernel_does_not_take():

@@ -26,7 +26,14 @@ Tolerances, each set from the reading it states (this CPU, float32):
   plain version that leaves the magnitude unrounded reads mean 2.8e-4 on
   both and fails), and
   the numpy bar of ``tests/test_mel_pallas.py`` (max 0.05, mean 0.01;
-  read 2.3e-3 and 4.1e-4).
+  read 2.3e-3 and 4.1e-4);
+- the CUDA kernel's tables: its FFT twiddles within half an fp32 ulp of
+  numpy's float64 values (one rounding), its sparse mel bands rebuilding
+  ``dft_mel_mats``' bf16 weights exactly, and its FFT's data flow (the
+  32 x 32 four-step FFT, bit-reversed registers, the real-FFT split step),
+  replayed in float64 with those twiddles, within 1e-6 of numpy's rfft
+  (relative to the largest magnitude; read 7.5e-8: the twiddles' fp32
+  rounding).
 """
 
 import jax
@@ -202,6 +209,95 @@ def test_dft_mel_mats_match_the_tpu_kernel_tables():
     np.testing.assert_array_equal(sin[:, :n_freqs], jsin[:, :n_freqs])
     np.testing.assert_array_equal(mel_w[:n_freqs], jmel[:n_freqs, :80])
     assert not cos[:, n_freqs:].any() and not mel_w[n_freqs:].any()
+
+
+def _exp_table(n_fft):
+    """numpy's float64 W values in the order of mel.fft_twiddles."""
+    m, j = n_fft // 2, np.arange(32)
+    return np.concatenate([np.exp(-2j * np.pi * np.arange(16) / 32),
+                           np.exp(-2j * np.pi * (np.outer(j, j) % m)
+                                  .reshape(-1) / m),
+                           np.exp(-2j * np.pi * np.arange(m) / n_fft)])
+
+
+def test_fft_twiddles_are_rounded_once_from_float64():
+    tw = mel.fft_twiddles(HP.n_fft)
+    want = _exp_table(HP.n_fft)
+    assert tw.shape == (16 + HP.n_fft, 2) and tw.dtype == np.float32
+    for got, ref in ((tw[:, 0], want.real), (tw[:, 1], want.imag)):
+        ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+        assert (np.abs(got - ref) <= 0.5 * ulp + 1e-15).all()
+    with pytest.raises(ValueError, match="n_fft 2048"):
+        mel.fft_twiddles(1024)
+
+
+@pytest.mark.parametrize("hp", [HP, HP.replace(num_mels=20)],
+                         ids=["80_mels", "20_mels"])
+def test_mel_bands_rebuild_the_dense_bf16_weights(hp):
+    band, weights = mel.mel_bands(hp)
+    dense = torch.from_numpy(mel.dft_mel_mats(hp)[2]).to(torch.bfloat16)
+    rebuilt = torch.zeros_like(dense)
+    for m, (start, count, offset) in enumerate(band.T):
+        rebuilt[start:start + count, m] = weights[offset:offset + count]
+    assert torch.equal(rebuilt, dense)
+    assert weights.dtype == torch.bfloat16 and band.dtype == np.int32
+    assert int(band[1].sum()) == weights.numel() == int(
+        torch.count_nonzero(dense))
+    if hp.num_mels == 80:
+        assert weights.numel() == 2004
+
+
+def _dif32(a, tw32):
+    """The kernel's 32-point radix-2 decimation-in-frequency FFT over axis
+    0; row i of the result is bin bitrev5(i)."""
+    a = a.copy()
+    span = 16
+    while span:
+        for g0 in range(0, 32, 2 * span):
+            for j in range(span):
+                u, v = a[g0 + j].copy(), a[g0 + j + span].copy()
+                a[g0 + j] = u + v
+                a[g0 + j + span] = (u - v) * (
+                    tw32[j * (32 // (2 * span))] if j else 1.0)
+        span //= 2
+    return a
+
+
+def _kernel_spectrum(x, tw):
+    """csrc/frame_mel.cu's FFT of one 2048-sample frame, replayed in
+    float64: lanes are columns, registers rows."""
+    w = tw[:, 0].astype(np.float64) + 1j * tw[:, 1]
+    tw32, mid, split = w[:16], w[16:16 + 1024], w[16 + 1024:]
+    rev = np.array([int("{:05b}".format(i)[::-1], 2) for i in range(32)])
+    lane = np.arange(32)
+    z = (x[0::2] + 1j * x[1::2]).reshape(32, 32)        # [n1, lane]
+    a = _dif32(z, tw32)                                  # [i, lane]
+    ex = np.empty((32, 32), complex)
+    ex[rev] = a * mid[rev[:, None] * 32 + lane[None, :]]  # [k1, n2]
+    b = _dif32(ex.T, tw32)                               # [i, k1]
+    zs = np.empty(1024, complex)
+    zs[lane[None, :] + 32 * rev[:, None]] = b
+    f = np.arange(1024)
+    zf, zc = zs, zs[(1024 - f) & 1023]
+    er, ei = 0.5 * (zf.real + zc.real), 0.5 * (zf.imag - zc.imag)
+    orr, oi = 0.5 * (zf.imag + zc.imag), 0.5 * (zc.real - zf.real)
+    ws = split[f]
+    spec = (er + (ws.real * orr - ws.imag * oi)) + \
+        1j * (ei + (ws.real * oi + ws.imag * orr))
+    return np.append(spec, zs[0].real - zs[0].imag)
+
+
+def test_kernel_fft_data_flow_matches_rfft():
+    pre = dsp.preemphasis(make_wavs(1, 16000)[0].astype(np.float64),
+                          HP.preemphasis)
+    frames = mel.windowed_frames(torch.from_numpy(pre.astype(np.float32)),
+                                 HP).numpy().astype(np.float64)
+    tw = mel.fft_twiddles(HP.n_fft)
+    for t in (0, 40, frames.shape[0] - 1):
+        got = _kernel_spectrum(frames[t], tw)
+        want = np.fft.rfft(frames[t])
+        assert got.shape == want.shape == (1 + HP.n_fft // 2,)
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
 
 
 def test_cpu_route_never_builds_and_other_devices_raise(monkeypatch):

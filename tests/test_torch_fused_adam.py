@@ -17,6 +17,11 @@ package's ``fused_adam_step``, on the CPU.
 - Moments carried over from the JAX package by ``optimizer_state_from_jax``
   continue under ``FusedAdam`` as under ``fused_adam_step`` (within 1e-6).
 - A group whose step counts differ is refused.
+- ``adam_leaves`` on CPU lists: the same bits as ``adam_leaf_plain`` leaf
+  by leaf, and the JAX kernel mapped over the leaves in interpret mode
+  within rtol 2e-5, atol 2e-6 (the bar above); the list rule it checks
+  once over the list (``check_leaves``); ``FusedAdam`` hands a group's
+  kernel leaves to one ``adam_leaves`` call.
 - At ``default_config()`` the kernel leaves are the 37 leaves the JAX
   package routes to its kernel, by name through the converter.
 - The training CLI with ``use_fused_adam=True`` trains, saves a checkpoint
@@ -287,6 +292,90 @@ def test_kernel_leaves_are_the_jax_packages():
     assert sum(p.numel() for p in kernel_leaf_params(model)) == 61_661_184
 
 
+LEAF_SHAPES = [(64, 128), (300, 256), (40, 80), (7,)]
+
+
+def _leaves(seed):
+    rng = np.random.RandomState(seed)
+    return [[(rng.randn(*s) * scale).astype(np.float32) ** power
+             for s in LEAF_SHAPES]
+            for scale, power in ((0.05, 1), (1e-2, 1), (1e-3, 1), (1e-3, 2))]
+
+
+def test_adam_leaves_matches_per_leaf_plain_and_the_jax_kernel():
+    p, g, m, v = _leaves(11)
+    a = float(np.float32(1e-3 / (1 - 0.9 ** 10)))
+    r = float(np.float32((1 - 0.999 ** 10) ** -0.5))
+    coef = (a, r, 0.9, 0.999, 1e-8)
+    t = lambda xs: [torch.from_numpy(x.copy()) for x in xs]
+    pk, mk, vk = t(p), t(m), t(v)
+    before = fused_adam.adam_leaves.launches
+    fused_adam.adam_leaves(pk, t(g), mk, vk, *coef)
+    assert fused_adam.adam_leaves.launches == before    # CPU: no kernel
+    scalars = jnp.asarray([a, r], jnp.float32)
+    for i in range(len(LEAF_SHAPES)):
+        pp, mp, vp = t([p[i]]), t([m[i]]), t([v[i]])
+        fused_adam.adam_leaf_plain(pp, t([g[i]]), mp, vp, *coef)
+        for got, want in ((pk[i], pp[0]), (mk[i], mp[0]), (vk[i], vp[0])):
+            assert torch.equal(got, want)
+        jp, jm, jv = jax_fused_adam._adam_leaf_pallas(
+            *(jnp.asarray(x[i]) for x in (p, g, m, v)), scalars, b1=0.9,
+            b2=0.999, eps=1e-8, interpret=True)
+        for got, want in ((pk[i], jp), (mk[i], jm), (vk[i], jv)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=2e-5, atol=2e-6)
+
+
+def test_adam_leaves_checks_the_whole_list():
+    def lists(n=3):
+        return [[torch.zeros(8, 128) for _ in range(n)] for _ in range(4)]
+    ptrs, lengths = fused_adam.check_leaves(*lists())
+    assert len(ptrs) == 12 and lengths == [1024] * 3
+    empty = lists()
+    for x in empty:
+        x[1] = torch.zeros(0, 128)
+    assert fused_adam.check_leaves(*empty)[1] == [1024, 1024]
+    misaligned = lists()
+    misaligned[2][1] = torch.zeros(1025)[1:].reshape(8, 128)   # 4 bytes off
+    mixed_type = lists()
+    mixed_type[1][2] = torch.zeros(8, 128, dtype=torch.float64)
+    mixed_shape = lists()
+    mixed_shape[3][0] = torch.zeros(128, 8)
+    strided = lists()
+    strided[0][1] = torch.zeros(128, 8).t()
+    mixed_device = lists()
+    mixed_device[1][0] = torch.zeros(8, 128, device="meta")
+    for bad in (misaligned, mixed_type, mixed_shape, strided, mixed_device):
+        with pytest.raises(ValueError, match="16-byte aligned float32"):
+            fused_adam.check_leaves(*bad)
+    short = lists()
+    short[3].pop()
+    with pytest.raises(ValueError, match="one length"):
+        fused_adam.check_leaves(*short)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        fused_adam.adam_leaves(*([x.to("meta") for x in xs]
+                                 for xs in lists()), 1e-3, 1.0, 0.9, 0.999,
+                               1e-8)
+
+
+def test_fused_adam_steps_its_kernel_leaves_in_one_call(monkeypatch):
+    big, small, other = (nn.Parameter(torch.randn(*s))
+                         for s in ((16, 128), (5,), (32, 128)))
+    optimizer = FusedAdam([big, small, other], kernel_params=[big, other])
+    calls = []
+    real = fused_adam.adam_leaves
+
+    def spy(params, *args):
+        calls.append([id(p) for p in params])
+        return real(params, *args)
+    monkeypatch.setattr(fused_adam, "adam_leaves", spy)
+    for p in (big, small, other):
+        p.grad = torch.ones_like(p)
+    optimizer.step()
+    assert calls == [[id(big), id(other)]]
+    assert float(optimizer.state[small]["step"]) == 1.0
+
+
 def test_a_group_steps_under_one_count():
     """A parameter left without a gradient falls a count behind; the next
     step over both refuses rather than mixing bias corrections."""
@@ -305,9 +394,9 @@ def test_cpu_route_never_builds_and_other_devices_raise(monkeypatch):
     monkeypatch.setattr(cuda_build, "load", no_build)
     fused_adam._library.cache_clear()
     p, g, m, v = (torch.ones(8, 128) for _ in range(4))
-    before = fused_adam.adam_leaf.launches
+    before = fused_adam.adam_leaves.launches
     fused_adam.adam_leaf(p, g, m, v, 1e-3, 1.0, 0.9, 0.999, 1e-8)
-    assert fused_adam.adam_leaf.launches == before
+    assert fused_adam.adam_leaves.launches == before
     np.testing.assert_allclose(m.numpy(), 1.0, rtol=1e-6)
     assert bool((p < 1).all())
     with pytest.raises(ValueError, match="CPU or CUDA"):

@@ -3,7 +3,8 @@ kernels in interpret mode, and the autograd Functions that carry them.
 
 - ``mha_backward_plain`` against ``jax.vjp`` of ``mha_train`` at rate 0
   (self-attention with bias, causal, cross-attention with bias; Tk not a
-  multiple of 32).  Tolerance 2e-5, as for the forward.
+  multiple of 32; head dim 64, and 32, 48 and 128).  Tolerance 2e-5, as
+  for the forward.
 - ``MhaFunction``'s gradients against torch autograd through
   ``mha_forward_plain`` at rates 0 and 0.1 (one mask function serves both).
   Tolerance 1e-5: the same fp32 math in another order.
@@ -36,15 +37,21 @@ CASES = {
     "self_bias": dict(b=2, tq=45, tk=45, causal=False, valid=[45, 30]),
     "causal": dict(b=2, tq=37, tk=37, causal=True, valid=None),
     "cross_bias": dict(b=2, tq=40, tk=70, causal=False, valid=[70, 41]),
+    # head dims of other instantiations: 32, 48 (run padded to 64), 128
+    "self_bias_d32": dict(b=2, tq=45, tk=45, causal=False, valid=[45, 30],
+                          d=32),
+    "causal_d48": dict(b=2, tq=37, tk=37, causal=True, valid=None, d=48),
+    "cross_bias_d128": dict(b=2, tq=40, tk=70, causal=False, valid=[70, 41],
+                            d=128),
 }
 
 
-def _inputs(b, tq, tk, causal, valid, seed):
+def _inputs(b, tq, tk, causal, valid, seed, d=D):
     rng = np.random.RandomState(seed)
-    q = (rng.randn(b, tq, H * D) * 0.3).astype(np.float32)
-    k = (rng.randn(b, tk, H * D) * 0.3).astype(np.float32)
-    v = rng.randn(b, tk, H * D).astype(np.float32)
-    do = rng.randn(b, tq, H * D).astype(np.float32)
+    q = (rng.randn(b, tq, H * d) * 0.3).astype(np.float32)
+    k = (rng.randn(b, tk, H * d) * 0.3).astype(np.float32)
+    v = rng.randn(b, tk, H * d).astype(np.float32)
+    do = rng.randn(b, tq, H * d).astype(np.float32)
     valid = valid if valid is not None else [tk] * b
     bias = np.where(np.arange(tk)[None, :] < np.asarray(valid)[:, None],
                     0.0, -1e20).astype(np.float32)
