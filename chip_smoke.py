@@ -10,8 +10,9 @@ uncaught exception and a non-zero exit):
 
   1. device: the card's name and power limit (nvidia-smi).
   2. build: nvcc builds every csrc/*.cu for sm_90a (the attention sources
-     once per head dim, 32 to 256), one process per library, all at once;
-     seconds and each library's ptxas resource summary.
+     once per head dim, 32 to 256; mha_wide.cu, the head dims above 256,
+     once), one process per library, all at once; seconds and each
+     library's ptxas resource summary.
   3. kernel_check: the CUDA attention forward against its plain PyTorch
      version on the card, bf16, at the three flagship synthesis call shapes
      (encoder self-attention, decoder causal, cross-attention, B=8) and edge
@@ -36,19 +37,30 @@ uncaught exception and a non-zero exit):
      / plain / SDPA ms, bound): n_attention_head=4 (encoder D=128, decoder
      causal and cross D=192), 768 wide with 16 heads (D=48, padded to the
      D=64 kernel), 512 wide with 2 heads (D=256, the 32-row tiles); D=160
-     and 224 at small shapes; one fp32 case (D=128); a head dim above 256
-     must raise ValueError.
+     and 224 at small shapes; one fp32 case (D=128); above 256 the
+     run-time head dim of csrc/mha_wide.cu: 2 heads at 768 (D=384, decoder
+     causal and cross), 1 head at 512 (encoder D=512) and at 768 (decoder
+     causal D=768) at the B=16 train shapes, D=288 (576 wide, 2 heads) at a
+     small shape and an fp32 case at D=384; a head dim above 1024 must raise
+     ValueError naming the limit.
   5. decode_kernel_check: the fused decode step (csrc/decoder_step.cu)
      against its plain PyTorch version on the card at the flagship synthesis
      shape (6 layers, C=768, 8 heads, B=8, bf16, the flagship model's
      stacked weights, cache of 512, memory 192 padded to 256) at steps 0, 1,
-     255, 256 and 511, plus its first layer alone, an fp32 case and a
-     small-width case (C=128, 4 heads, D=32).  Two launches on the same
-     inputs must agree bit for bit; errors (max, L2, and per attention row)
-     against the stated tolerances (TOL_DECODE); kernel and
-     plain ms per frame beside the bytes bound, and the eager
-     ``decode_step``'s device time per frame for context (no single PyTorch
-     call computes a frame, so no library time).
+     255, 256 and 511, the same weights as 2 heads (D=384), its first layer
+     alone, the first layer over a cache of 16,640 positions at step 16,500
+     (2 rows; held to the plain math in float64, see decode_plain_f64), an
+     fp32 case and a small-width case (C=128, 4 heads, D=32; 3 rows, and
+     20 rows in three passes of 8 at the six-layer bound).  Three
+     launches on the same inputs must agree bit for bit; errors (max, L2,
+     and per attention row) against the stated tolerances (TOL_DECODE);
+     kernel and plain ms per frame beside the bytes bound, the per-stage
+     timeline, the grid barriers one frame passes, the wrapper's host time,
+     and the eager ``decode_step``'s device time per frame for context (no
+     single PyTorch call computes a frame, so no library time).  With
+     ``--parent-decoder PATH`` (a parent commit's csrc/decoder_step.cu) it
+     builds that kernel too and times parent, change, change, parent at
+     steps 0, 256 and 511 in this call.
   6. main_path: the flagship default_config() (6+6 layers, 512/768, 8 heads,
      80 mels) with weights from --seed through numpy, stop bias -1e4 so every
      row decodes to the cap; synthesize_batch at B=8, T_in=192, 512 frames,
@@ -664,7 +676,9 @@ def head_dim_phase(seed):
     flagship widths with 4 heads (D=128, 192), 768 wide with 16 heads
     (D=48 on the D=64 kernel, padded), 512 wide with 2 heads (D=256), bf16
     at the B=16 train shapes; the two other instantiations (D=160, 224) at
-    small shapes; one fp32 case; above 256 raises."""
+    small shapes; one fp32 case; above 256 the wide kernel at D=384, 512,
+    768 (train shapes) and 288 (small), one fp32 case; above 1024
+    raises."""
     rng = np.random.RandomState(seed + 30)
     enc_len = rng.randint(96, 193, 16)
     for name, c, heads, shape in (
@@ -687,8 +701,28 @@ def head_dim_phase(seed):
                           [77, 50, 1, 77], 0, cross=True, iters=5)
     check_train_attention("train_encoder_h4_fp32", rng, 16, 192, 192, 512, 4,
                           False, enc_len, 0, dtype=torch.float32, iters=5)
-    # above the largest instantiation: a ValueError that names the limit
-    q = torch.zeros(1, 8, 288, dtype=torch.bfloat16, device="cuda")
+    # above 256, csrc/mha_wide.cu (run-time head dim): the flagship widths
+    # with 2 heads (decoder D=384) and 1 (encoder D=512, decoder D=768) at
+    # the B=16 train shapes, D=288 (576 wide, 2 heads) at a small shape,
+    # and one fp32 case
+    for name, c, heads, shape in (
+            ("train_decoder_causal_d384", 768, 2, "decoder_causal"),
+            ("train_cross_d384", 768, 2, "cross"),
+            ("train_encoder_d512", 512, 1, "encoder"),
+            ("train_decoder_causal_d768", 768, 1, "decoder_causal")):
+        tq, tk, causal, lengths, cross = {
+            "encoder": (192, 192, False, enc_len, False),
+            "decoder_causal": (448, 448, True, None, False),
+            "cross": (448, 192, False, enc_len, True)}[shape]
+        check_train_attention(name, rng, 16, tq, tk, c, heads, causal,
+                              lengths, 0, cross=cross, iters=5)
+    check_train_attention("small_cross_d288", rng, 4, 200, 77, 576, 2, False,
+                          [77, 50, 1, 77], 0, cross=True, iters=5)
+    check_train_attention("small_causal_d384_fp32", rng, 4, 120, 120, 768, 2,
+                          True, None, 0, dtype=torch.float32, iters=3)
+    # above the largest head dim: a ValueError that names the limit
+    d_over = MAX_HEAD_DIM + 32
+    q = torch.zeros(1, 8, d_over, dtype=torch.bfloat16, device="cuda")
     try:
         mha_forward(q, q, q, None, 1, False, 1.0, False)
     except ValueError as e:
@@ -696,15 +730,16 @@ def head_dim_phase(seed):
         message = str(e)
     else:
         refused, message = False, None
-    row = {"phase": "head_dim_check", "case": "head_dim_288",
+    row = {"phase": "head_dim_check", "case": "head_dim_%d" % d_over,
            "raised_value_error_naming_the_limit": refused,
            "message": message,
            "instantiation_by_head_dim": {
                d: kernel_head_dim(d) for d in (8, 12, 32, 48, 80, 128, 192,
-                                               200, 256)}}
+                                               200, 256, 288, 300, 384, 512,
+                                               768, 1024)}}
     emit(row)
     if not refused:
-        raise AssertionError("head dim 288 did not raise: %s" % row)
+        raise AssertionError("head dim %d did not raise: %s" % (d_over, row))
 
 
 # ---------------------------------------------------------------------------
@@ -748,18 +783,19 @@ def decode_inputs(rng, w, b, t_cap, t_in, dtype):
             t(n_layers, b, t_cap, c).to(dtype), mem_k, mem_v, bias)
 
 
-def stage_breakdown(w, inputs, heads, step, reps=5):
+def stage_breakdown(w, inputs, heads, step, reps=5, fn=None):
     """Microseconds per stage kind, summed over the layers and averaged over
     ``reps`` frames, from the kernel's timeline (block 0's global-timer
-    stamps at each grid-wide barrier)."""
+    stamps at each grid-wide barrier); ``fn`` another kernel with the same
+    timeline (the parent's), by default decoder_frame_step."""
     x, ck, cv, mk, mv, bias = inputs
     n_layers = ck.shape[0]
     trace = torch.zeros(len(STAGES) * n_layers + 2, dtype=torch.int64,
                         device="cuda")
     total = np.zeros(1 + len(STAGES))
     for _ in range(reps):
-        decoder_frame_step(x, step, w, ck, cv, mk, mv, bias, num_heads=heads,
-                           trace=trace)
+        (fn or decoder_frame_step)(x, step, w, ck, cv, mk, mv, bias,
+                                   num_heads=heads, trace=trace)
         d = np.diff(trace.cpu().numpy().astype(np.float64)) / 1e3
         total += np.concatenate([d[:1], d[1:].reshape(n_layers, -1).sum(0)])
     total /= reps
@@ -788,14 +824,74 @@ def align_errors(got, want, bias):
             "align_row_sum_err": (both.sum(3) - 1).abs().max().item()}
 
 
-def check_decode(name, w, inputs, heads, step, iters=20):
+@torch.no_grad()
+def decode_plain_f64(x, step, w, cache_k, cache_v, mem_k, mem_v, mem_bias, *,
+                     num_heads):
+    """decoder_frame_step_plain's math at its rounding points (float32
+    values where it holds float32: the residual stream, and every value it
+    rounds to float32 before a bf16 rounding), with every sum in float64: the reference of a case whose sums run over so many
+    positions that the plain version's own float32 sums carry a bf16
+    rounding to the other side (the long cache)."""
+    n_layers, b, _, c = cache_k.shape
+    h, wdt, cdt = num_heads, w["w_qkv"].dtype, cache_k.dtype
+    d = c // h
+    scale = float(d) ** -0.5
+    f32 = lambda t: t.float().double()              # rounded to float32
+    rnd = lambda t: t.float().to(wdt).double()      # ... then to bf16
+    mm = lambda a, wt: torch.matmul(rnd(a), wt.double())
+    heads = lambda t: t.reshape(*t.shape[:-1], h, d)
+
+    def ln(t, g, bt):
+        m = t.mean(-1, keepdim=True)
+        tc = t - m
+        return tc * (1.0 / torch.sqrt((tc * tc).mean(-1, keepdim=True) +
+                                      1e-6)) * g + bt
+    x = x.double()
+    aligns, k_new, v_new = [], [], []
+    for l in range(n_layers):
+        lns = w["lns"][l].double()
+        qkv = f32(mm(ln(x, lns[0], lns[1]), w["w_qkv"][l]))
+        q = f32(qkv[:, :c] * scale)
+        k_f, v_f = qkv[:, c:2 * c], qkv[:, 2 * c:]
+        k_new.append(k_f.to(cdt))
+        v_new.append(v_f.to(cdt))
+        fresh = rnd(f32(heads(q * k_f))).sum(-1)
+        s = rnd(heads(rnd(q))[:, None] *
+                heads(cache_k[l, :, :step].double())).sum(-1)
+        m = torch.maximum(s.amax(1), fresh) if step else fresh
+        p = torch.exp(s - m[:, None])
+        pf = torch.exp(fresh - m)
+        den = p.sum(1) + pf
+        ctx = (rnd(p / den[:, None])[..., None] *
+               heads(cache_v[l, :, :step].double())).sum(1) + \
+            rnd(pf / den)[..., None] * heads(v_f)
+        x = f32(x + f32(mm(ctx.reshape(b, c), w["w_out"][l])))
+        qx = f32(f32(mm(ln(x, lns[2], lns[3]), w["w_q"][l])) * scale)
+        s = rnd(heads(rnd(qx))[:, None] * heads(mem_k[l].double())).sum(-1) \
+            + mem_bias.double()[..., None]
+        p = torch.exp(s - s.amax(1, keepdim=True))
+        wts = p / p.sum(1, keepdim=True)
+        aligns.append(wts)
+        ctx = (rnd(wts)[..., None] * heads(mem_v[l].double())).sum(1)
+        x = f32(x + f32(mm(ctx.reshape(b, c), w["w_xout"][l])))
+        hid = torch.relu(mm(ln(x, lns[4], lns[5]), w["w_ffn1"][l]))
+        x = f32(x + f32(mm(hid, w["w_ffn2"][l])))
+    return (x.float(), torch.stack(aligns).float(), torch.stack(k_new),
+            torch.stack(v_new))
+
+
+def check_decode(name, w, inputs, heads, step, iters=20, tol_key=None,
+                 stages=True, reference=decoder_frame_step_plain):
+    """The kernel against ``reference`` (its plain version unless stated),
+    held to TOL_DECODE[tol_key] (the case's name by default); three
+    launches must give the same bits."""
     x, ck, cv, mk, mv, bias = inputs
     args = (x, step, w, ck, cv, mk, mv, bias)
     got = decoder_frame_step(*args, num_heads=heads)
-    again = decoder_frame_step(*args, num_heads=heads)
-    want = decoder_frame_step_plain(*args, num_heads=heads)
+    again = [decoder_frame_step(*args, num_heads=heads) for _ in range(2)]
+    want = reference(*args, num_heads=heads)
     torch.cuda.synchronize()
-    tol = TOL_DECODE[name]
+    tol = TOL_DECODE[tol_key or name]
     outs = ("x_out", "k_new", "v_new")
     pairs = list(zip(outs, (got[0], got[2], got[3]),
                      (want[0], want[2], want[3])))
@@ -804,14 +900,21 @@ def check_decode(name, w, inputs, heads, step, iters=20):
     al = align_errors(got[1], want[1], bias)
     bound_ms, bound_by, nbytes, flops = decode_bound(w, x, ck, mk, heads,
                                                      step)
+    plain_vs_ref = None
+    if reference is not decoder_frame_step_plain:
+        plain_vs_ref = l2_err(decoder_frame_step_plain(*args,
+                                                       num_heads=heads)[0],
+                              want[0])
     row = {"phase": "decode_kernel_check", "case": name,
+           "reference": reference.__name__,
+           "plain_l2_err_x_out_vs_reference": plain_vs_ref,
            "dtype": str(ck.dtype), "L": ck.shape[0], "B": x.shape[0],
            "C": x.shape[1], "H": heads, "Tcap": ck.shape[2],
            "Tm": mk.shape[2], "step": step, **errs, **l2, **al,
            "max_abs_err": abs_err(got[0], want[0]),
            "max_abs_x_out": want[0].abs().max().item(),
-           "repeat_bit_identical": all(torch.equal(a, b)
-                                       for a, b in zip(got, again)),
+           "repeat_bit_identical": all(torch.equal(a, b) for rep in again
+                                       for a, b in zip(got, rep)),
            "tol": tol, "tol_row_sum": TOL_ROW_SUM,
            "ms": cuda_ms(lambda: decoder_frame_step(*args, num_heads=heads),
                          iters),
@@ -819,7 +922,8 @@ def check_decode(name, w, inputs, heads, step, iters=20):
                *args, num_heads=heads), 2),
            "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
            "bytes": nbytes, "flops": flops,
-           "stage_us": stage_breakdown(w, inputs, heads, step)}
+           "stage_us": stage_breakdown(w, inputs, heads, step)
+           if stages else None}
     row["ok"] = max(errs.values()) <= tol["rel"] and \
         max(l2.values()) <= tol["l2"] and \
         al["align_l1"] <= tol["l1"] and al["align_row"] <= tol["row"] and \
@@ -872,7 +976,88 @@ def eager_step_ms(model, hp, batch, step=255, cap=512):
                                                  memory_kv, bias), 2)
 
 
-def decode_kernel_phase(model, hp, batch, seed):
+def barriers_per_frame(w, inputs, heads, step):
+    """Grid barriers one launch passes: the kernel's barrier count (block
+    arrivals) before and after it, over the grid (one block per SM)."""
+    x, ck, cv, mk, mv, bias = inputs
+    state = decode_ops.barrier_state(
+        x.device, torch.cuda.current_stream().cuda_stream)
+    grid = torch.cuda.get_device_properties(x.device).multi_processor_count
+    torch.cuda.synchronize()
+    before = int(state.item())
+    decoder_frame_step(x, step, w, ck, cv, mk, mv, bias, num_heads=heads)
+    torch.cuda.synchronize()
+    return (int(state.item()) - before) / grid
+
+
+def parent_decoder(source):
+    """The parent commit's decoder_step.cu, built here (its C interface:
+    the six stacked weights, fixed-point scratch), as a function of
+    decoder_frame_step's arguments: for the A/B of one call."""
+    import ctypes
+    out = os.path.join(ROOT, "build", "parent_decoder", "libdecoder_step.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                    out, source], check=True, capture_output=True,
+                   timeout=600)
+    lib = ctypes.CDLL(out)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.decoder_step.argtypes = [i, p, i] + [p] * 18 + [i] * 7 + [p]
+    lib.decoder_step.restype = i
+    lib.decoder_step_scratch_bytes.argtypes = [i, i, i]
+    lib.decoder_step_scratch_bytes.restype = ctypes.c_longlong
+
+    def step_fn(x, step, w, ck, cv, mk, mv, bias, num_heads, trace=None):
+        n_layers, b, t_cap, c = ck.shape
+        f = w["w_ffn1"].shape[-1]
+        x_out = torch.empty(b, c, device="cuda")
+        align = torch.empty(n_layers, b, mk.shape[2], num_heads,
+                            device="cuda")
+        k_new = torch.empty(n_layers, b, c, dtype=ck.dtype, device="cuda")
+        v_new = torch.empty_like(k_new)
+        scratch = torch.empty(lib.decoder_step_scratch_bytes(b, c, f),
+                              dtype=torch.uint8, device="cuda")
+        err = lib.decoder_step(
+            1 if ck.dtype == torch.bfloat16 else 0, x.data_ptr(), step,
+            w["lns"].data_ptr(), *(w[n].data_ptr() for n in DECODE_WEIGHTS),
+            ck.data_ptr(), cv.data_ptr(), mk.data_ptr(), mv.data_ptr(),
+            bias.data_ptr(), x_out.data_ptr(), align.data_ptr(),
+            k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
+            None if trace is None else trace.data_ptr(),
+            n_layers, b, t_cap, mk.shape[2], c, f, num_heads,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError("the parent's decoder_step failed: %d" % err)
+        return x_out, align, k_new, v_new
+    return step_fn
+
+
+def parent_ab(parent, w, inputs, heads, iters=20):
+    """ms per frame of the parent's kernel and this one at steps 0, 256 and
+    511, in the order parent, change, change, parent, with the parent's
+    x_out against the plain version's."""
+    x, ck, cv, mk, mv, bias = inputs
+    rows = {}
+    for step in (0, 256, 511):
+        args = (x, step, w, ck, cv, mk, mv, bias)
+        want = decoder_frame_step_plain(*args, num_heads=heads)[0]
+        old = parent(*args, num_heads=heads)[0]
+        times = []
+        for fn in (parent, decoder_frame_step, decoder_frame_step, parent):
+            times.append(cuda_ms(lambda: fn(*args, num_heads=heads), iters))
+        rows[step] = {"parent_ms": [times[0], times[3]],
+                      "change_ms": [times[1], times[2]],
+                      "parent_rel_err_x_out": rel_err(old, want),
+                      "parent_stage_us": stage_breakdown(w, inputs, heads,
+                                                         step, fn=parent),
+                      "change_stage_us": stage_breakdown(w, inputs, heads,
+                                                         step)}
+    emit({"phase": "decode_kernel_check", "case": "parent_ab",
+          "order": "parent, change, change, parent", "by_step": rows})
+    return rows
+
+
+def decode_kernel_phase(model, hp, batch, seed, parent_source=None):
     rng = np.random.RandomState(seed + 20)
     heads = hp.n_attention_head
     rows = {}
@@ -880,14 +1065,33 @@ def decode_kernel_phase(model, hp, batch, seed):
     inputs = decode_inputs(rng, w, 8, 512, 192, torch.bfloat16)
     for step in (0, 1, 255, 256, 511):
         rows[step] = check_decode("flagship_bf16", w, inputs, heads, step)
+    rows["barriers_per_frame"] = barriers_per_frame(w, inputs, heads, 256)
+    emit({"phase": "decode_kernel_check", "case": "barriers",
+          "L": w["w_qkv"].shape[0],
+          "barriers_per_frame": rows["barriers_per_frame"]})
     rows["host"] = wrapper_host_us(w, inputs, heads, 256)
     emit({"phase": "decode_kernel_check", "case": "wrapper_host_time",
           "step": 256, **rows["host"]})
+    if parent_source:
+        rows["parent_ab"] = parent_ab(parent_decoder(parent_source), w,
+                                      inputs, heads)
+    # the same weights as 2 heads of 384: the flagship width at D=384
+    rows["d384"] = check_decode("flagship_d384_bf16", w, inputs, 2, 300,
+                                iters=5, tol_key="flagship_bf16")
     # the first layer alone at the same width: one layer of drift
     w1 = {k: v[:1].contiguous() for k, v in w.items()}
-    check_decode("one_layer_bf16", w1,
-                 tuple(t[:1].contiguous() if t.dim() == 4 else t
-                       for t in inputs), heads, 300, iters=5)
+    first = lambda t: t[:1].contiguous() if t.dim() == 4 else t
+    check_decode("one_layer_bf16", w1, tuple(first(t) for t in inputs),
+                 heads, 300, iters=5)
+    # a cache past 16384 positions: the first layer, 2 rows
+    long_inputs = decode_inputs(rng, w1, 2, 16640, 192, torch.bfloat16)
+    # over 16,500 positions the plain version's float32 sums themselves
+    # carry bf16 roundings across, so this case is held to the same math in
+    # float64 (the row reports how far the plain version lies from it)
+    rows["long_cache"] = check_decode(
+        "long_cache_one_layer_bf16", w1, long_inputs, heads, 16500, iters=5,
+        tol_key="one_layer_bf16", stages=False, reference=decode_plain_f64)
+    del long_inputs
     w32 = stack_decoder_params(model.decoder.decoder, torch.float32)
     check_decode("flagship_fp32", w32,
                  decode_inputs(rng, w32, 8, 512, 192, torch.float32), heads,
@@ -904,9 +1108,18 @@ def decode_kernel_phase(model, hp, batch, seed):
         small[name] = torch.from_numpy(
             (rng.randn(2, k, n) / np.sqrt(k)).astype(np.float32)).to(
                 "cuda", torch.bfloat16)
+    small["tiles"] = decode_ops.pack_decoder_weights(small)
     check_decode("small_c128_bf16", small,
                  decode_inputs(rng, small, 3, 256, 77, torch.bfloat16), 4,
                  100, iters=5)
+    # 20 rows: the products run in three passes of 8 rows.  Over 20 rows
+    # an fp32 sum of either version (the LayerNorm's, the plain version's
+    # products) lands a bf16 rounding on the other side in some row, as
+    # in the six-layer case, so it takes that case's bound; a pass that
+    # computed the wrong rows would miss it by orders of magnitude
+    check_decode("small_c128_b20_bf16", small,
+                 decode_inputs(rng, small, 20, 256, 77, torch.bfloat16), 4,
+                 100, iters=5, tol_key="flagship_bf16")
     eager = eager_step_ms(model, hp, batch)
     emit({"phase": "decode_kernel_check", "case": "eager_decode_step",
           "step": 255, "device_ms_per_frame": eager,
@@ -1944,14 +2157,14 @@ KERNEL_SOURCES = {
 }
 
 
-def kernel_line(name, row, err, launches, by_path):
+def kernel_line(name, row, err, launches, by_path, **extra):
     source, replaces = KERNEL_SOURCES[name]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "launches_by_path": by_path, "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"]}
+            "library_ms": row["library_ms"], **extra}
 
 
 PHASES = ("kernel_check", "train_kernel_check", "head_dim_check",
@@ -1970,6 +2183,10 @@ def main():
                         help="comma-separated subset of %s (debugging; "
                              "the kernels and ok lines need all)"
                              % ",".join(PHASES))
+    parser.add_argument("--parent-decoder", default=None,
+                        help="a parent commit's csrc/decoder_step.cu: "
+                             "decode_kernel_check then times it against "
+                             "this one in one call (A/B)")
     args = parser.parse_args()
     phases = PHASES if args.phases == "all" else args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -2024,7 +2241,8 @@ def main():
         model = flagship_model(hp, args.seed, "cuda")
         batch = flagship_batch(hp, args.seed)
         if "decode_kernel_check" in phases:
-            out["decode"] = decode_kernel_phase(model, hp, batch, args.seed)
+            out["decode"] = decode_kernel_phase(model, hp, batch, args.seed,
+                                                args.parent_decoder)
         synthesis = None
         if "main_path" in phases:
             out["eager"], synthesis = main_path_phase(model, hp, batch,
@@ -2077,7 +2295,8 @@ def main():
         kernel_line("decoder_frame_step", out["decode"][256],
                     out["decode"][256]["max_abs_err"],
                     out["fused"]["decoder_frame_step"],
-                    paths("decoder_frame_step")),
+                    paths("decoder_frame_step"),
+                    barriers_per_frame=out["decode"]["barriers_per_frame"]),
         # feature extraction: one batched call at full width
         kernel_line("fused_frame_mel", out["dsp"]["full"],
                     out["dsp"]["full"]["max_abs_err"],

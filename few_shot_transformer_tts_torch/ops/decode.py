@@ -10,11 +10,11 @@ H]``.
 kernel per frame) for CUDA tensors and takes ``decoder_frame_step_plain``,
 the same math in plain PyTorch, for CPU tensors.  The plain version is also
 what the tests and ``chip_smoke.py`` hold the kernel against.  The kernel
-is deterministic: it adds the partial sums of its products as 64-bit
-fixed-point integers (2^-28 resolution), whose sum does not depend on the
-order the blocks finish in, so the same inputs give the same bits.  A
-partial sum that is not finite or exceeds 2^24 in magnitude makes every
-output of the frame NaN.
+reads its weights pre-tiled (``pack_decoder_weights``, which
+``stack_decoder_params`` calls once per synthesis: ``w["tiles"]``) and splits
+them over the card's SMs by ``decoder_schedule``.  It is deterministic:
+every sum runs in a fixed order (no float atomics), so the same inputs give
+the same bits.
 
 Per layer: LN -> fused QKV -> causal self-attention over the cached prefix
 (positions < step) jointly with this frame's fresh k/v -> out-proj +
@@ -34,19 +34,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 
+import numpy as np
 import torch
 
 from . import cuda_build
 
 _TB = 256                   # cache / memory length multiple (the TPU's block)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 256
-_MAX_POSITIONS = 16384      # longest cache or memory the kernel's logits hold
 _WEIGHTS = ("w_qkv", "w_out", "w_q", "w_xout", "w_ffn1", "w_ffn2")
+_SLOT_BYTES = 16384         # one ring slot of the kernel (csrc kSlotBytes)
+# a head's row is 16 bytes per consumer thread of the kernel at most
+# (csrc kConsumers): D <= 2048 in bf16, 1024 in fp32
+_MAX_HEAD_BYTES = 4096
+_UNIT_COST = 4096           # a unit's fixed cost in the schedule, in bytes
 # The kernel's stages in each layer, in the order of its timeline: the
-# stamps are the start, the end of stage 0 (copy x, zero the sums), then
-# the end of each of these per layer.
+# stamps are the start, the end of the set-up, then the end of each of
+# these per layer.
 STAGES = ("qkv", "self_attention", "out_proj", "q_proj", "cross_attention",
           "cross_out_proj", "ffn_in", "ffn_out")
 
@@ -68,7 +73,8 @@ def stack_decoder_params(decoder, dtype: torch.dtype) -> dict:
     ``w_out``/``w_q``/``w_xout`` [L, C, C], ``w_ffn1`` [L, C, 4C], ``w_ffn2``
     [L, 4C, C]; ``lns`` [L, 6, C] fp32 holds the (scale, bias) pairs of the
     self-attention, cross-attention and FFN LayerNorms.  ``w_kv`` [L, C_mem,
-    2C] is for ``project_memory``, not for the kernel.
+    2C] is for ``project_memory``, not for the kernel.  ``tiles`` is the
+    kernel's copy of the six product weights (``pack_decoder_weights``).
     """
     def over(get):
         return torch.stack([get(i).weight.detach().t() for i in
@@ -80,7 +86,7 @@ def stack_decoder_params(decoder, dtype: torch.dtype) -> dict:
         decoder.encdec_layer_norms[i].bias,
         decoder.ffn_layer_norms[i].weight, decoder.ffn_layer_norms[i].bias])
         for i in range(len(decoder.self_attentions))]).detach().float()
-    return {
+    w = {
         "lns": lns,
         "w_qkv": over(lambda i: decoder.self_attentions[i].qkv_transform),
         "w_out": over(lambda i: decoder.self_attentions[i].output_transform),
@@ -91,6 +97,97 @@ def stack_decoder_params(decoder, dtype: torch.dtype) -> dict:
         "w_ffn1": over(lambda i: decoder.ffn_layers[i].input_layer),
         "w_ffn2": over(lambda i: decoder.ffn_layers[i].output_layer),
     }
+    w["tiles"] = pack_decoder_weights(w)
+    return w
+
+
+def _rup16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _stage_shapes(c: int, f: int):
+    """(K, N) of the six products of a layer, in the kernel's order."""
+    return ((c, 3 * c), (c, c), (c, c), (c, c), (c, f), (f, c))
+
+
+def layer_elems(c: int, f: int) -> int:
+    """Elements of one layer of ``pack_decoder_weights``' layout."""
+    return sum(_rup16(k) * _rup16(n) for k, n in _stage_shapes(c, f))
+
+
+@functools.lru_cache(maxsize=None)
+def _fragment_order():
+    """(k, n) within a 16 x 16 weight tile of element lane * 8 + e of the
+    packed tile: the mma.m16n8k16 A fragment of lane 4g + t, A[m][k] =
+    W[k][m] -- registers (k 2t.., n g), (k 2t.., n g+8), (k 2t+8.., n g),
+    (k 2t+8.., n g+8), two k each."""
+    lane, e = np.meshgrid(np.arange(32), np.arange(8), indexing="ij")
+    g, t, reg, half = lane // 4, lane % 4, e // 2, e % 2
+    k = 2 * t + half + 8 * (reg // 2)
+    n = g + 8 * (reg % 2)
+    return torch.from_numpy((k * 16 + n).reshape(-1))
+
+
+def pack_decoder_weights(w: dict) -> torch.Tensor:
+    """The kernel's layout of the six product weights: [L, layer_elems] in
+    their type.  Per layer, stage by stage (w_qkv, w_out, w_q, w_xout,
+    w_ffn1, w_ffn2), each [K, N] matrix zero-padded to multiples of 16 and
+    cut into units of 16 output columns; a unit holds its K/16 tiles of
+    16 x 16 in k order, each tile in the order of ``_fragment_order`` (one
+    16-byte load per lane in bf16)."""
+    parts = []
+    order = _fragment_order()
+    for name in _WEIGHTS:
+        m = w[name]
+        n_layers, k, n = m.shape
+        kp, np_ = _rup16(k), _rup16(n)
+        m = torch.nn.functional.pad(m, (0, np_ - n, 0, kp - k))
+        tiles = m.reshape(n_layers, kp // 16, 16, np_ // 16, 16).permute(
+            0, 3, 1, 2, 4).reshape(n_layers, np_ // 16, kp // 16, 256)
+        parts.append(tiles[..., order].reshape(n_layers, -1))
+    return torch.cat(parts, 1).contiguous()
+
+
+def unpack_decoder_weights(tiles: torch.Tensor, c: int, f: int) -> dict:
+    """The stacked [L, K, N] matrices back from ``pack_decoder_weights``."""
+    n_layers = tiles.shape[0]
+    inverse = torch.argsort(_fragment_order())
+    out, off = {}, 0
+    for name, (k, n) in zip(_WEIGHTS, _stage_shapes(c, f)):
+        kp, np_ = _rup16(k), _rup16(n)
+        part = tiles[:, off:off + kp * np_].reshape(
+            n_layers, np_ // 16, kp // 16, 256)[..., inverse]
+        out[name] = part.reshape(n_layers, np_ // 16, kp // 16, 16, 16) \
+            .permute(0, 2, 3, 1, 4).reshape(n_layers, kp, np_)[:, :k, :n]
+        off += kp * np_
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def decoder_schedule(c: int, f: int, elt: int, grid: int):
+    """Which block of a ``grid``-block launch owns which weight unit: int32
+    numpy arrays (offsets [grid + 1], entries), block g's entries
+    ``entries[offsets[g]:offsets[g + 1]]``, each ``stage << 16 | unit``
+    (unit = 16 output columns of the stage's product), sorted by stage and
+    unit.  Largest units first (the FFN's second product has 4x the rows),
+    each unit goes to the block with the fewest bytes so far (its K x 16
+    weights of ``elt`` bytes plus a fixed cost per unit; ties to the lower
+    block), so every block streams about the same bytes per layer.  The
+    same for every layer."""
+    units = [(_rup16(k) * 16 * elt + _UNIT_COST, stage, unit)
+             for stage, (k, n) in enumerate(_stage_shapes(c, f))
+             for unit in range(_rup16(n) // 16)]
+    units.sort(key=lambda u: -u[0])          # stable: stage, unit order
+    owned = [[] for _ in range(grid)]
+    heap = [(0, g) for g in range(grid)]
+    for cost, stage, unit in units:
+        load, g = heapq.heappop(heap)
+        owned[g].append(stage << 16 | unit)
+        heapq.heappush(heap, (load + cost, g))
+    owned = [sorted(o) for o in owned]
+    offsets = np.cumsum([0] + [len(o) for o in owned]).astype(np.int32)
+    entries = np.asarray([e for o in owned for e in o], dtype=np.int32)
+    return offsets, entries
 
 
 def project_memory(enc: torch.Tensor, w_kv: torch.Tensor,
@@ -201,10 +298,13 @@ def _check_cuda(x, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads):
         raise ValueError("decoder_frame_step runs on CPU or CUDA tensors, "
                          "not %s" % x.device)
     dt = cache_k.dtype
-    tensors = [x, cache_k, cache_v, mem_k, mem_v, mem_bias, w["lns"]] + \
-        [w[n] for n in _WEIGHTS]
+    if "tiles" not in w:
+        raise ValueError("the kernel reads w['tiles'] (pack_decoder_weights; "
+                         "stack_decoder_params adds it)")
+    tensors = [x, cache_k, cache_v, mem_k, mem_v, mem_bias, w["lns"],
+               w["tiles"]]
     if dt not in _DTYPE_CODES or any(
-            t.dtype != dt for t in [cache_v, mem_k, mem_v] +
+            t.dtype != dt for t in [cache_v, mem_k, mem_v, w["tiles"]] +
             [w[n] for n in _WEIGHTS]):
         raise ValueError("the kernel takes float32 or bfloat16 weights, "
                          "caches and memory, all of one type")
@@ -217,17 +317,51 @@ def _check_cuda(x, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads):
                for t in tensors):
         raise ValueError("the kernel takes contiguous, 16-byte aligned "
                          "tensors")
-    b, c = x.shape
+    n_layers, c, f = cache_k.shape[0], x.shape[1], w["w_ffn1"].shape[-1]
+    if tuple(w["tiles"].shape) != (n_layers, layer_elems(c, f)):
+        raise ValueError("w['tiles'] must be [%d, %d] for C=%d, F=%d, got %s"
+                         % (n_layers, layer_elems(c, f), c, f,
+                            tuple(w["tiles"].shape)))
     d = c // num_heads
-    vec = 16 // cache_k.element_size()
-    if d % vec or d > _MAX_HEAD_DIM or w["w_ffn1"].shape[-1] % vec:
+    elt = cache_k.element_size()
+    vec = 16 // elt
+    if d % vec or f % vec or d * elt > _MAX_HEAD_BYTES:
         raise ValueError(
             "the kernel takes head dims and FFN widths that are multiples of "
-            "%d (16 bytes), head dims up to %d; got D=%d, F=%d"
-            % (vec, _MAX_HEAD_DIM, d, w["w_ffn1"].shape[-1]))
-    if max(cache_k.shape[2], mem_k.shape[2]) > _MAX_POSITIONS:
-        raise ValueError("the kernel takes caches and memories of at most "
-                         "%d positions" % _MAX_POSITIONS)
+            "%d (16 bytes), head dims of at most %d bytes (D <= %d); got "
+            "D=%d, F=%d" % (vec, _MAX_HEAD_BYTES, _MAX_HEAD_BYTES // elt, d,
+                            f))
+    if 2 * c * 4 > _SLOT_BYTES:
+        raise ValueError("the kernel streams each LayerNorm's scale and "
+                         "bias as one 16 KB slot: C <= %d, got %d"
+                         % (_SLOT_BYTES // 8, c))
+    if _library().decoder_step_smem_bytes(elt, c, f, d) == 0:
+        raise ValueError("C=%d, F=%d: the staged activations leave less "
+                         "than two 16 KB ring slots of shared memory"
+                         % (c, f))
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_tables(device: torch.device, c: int, f: int, elt: int):
+    """(grid, schedule offsets, schedule entries) on ``device``: one block
+    per SM."""
+    grid = torch.cuda.get_device_properties(device).multi_processor_count
+    offsets, entries = decoder_schedule(c, f, elt, grid)
+    return (grid, torch.from_numpy(offsets).to(device),
+            torch.from_numpy(entries).to(device))
+
+
+_BARRIERS = {}
+
+
+def barrier_state(device: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's grid barrier on ``stream`` (its handle): one int64 count
+    of block arrivals, zero when made, that grows by the grid size at every
+    grid barrier the launches pass."""
+    key = (device, stream)
+    if key not in _BARRIERS:
+        _BARRIERS[key] = torch.zeros(1, dtype=torch.int64, device=device)
+    return _BARRIERS[key]
 
 
 def decoder_frame_step(x, step: int, w, cache_k, cache_v, mem_k, mem_v,
@@ -243,13 +377,15 @@ def decoder_frame_step(x, step: int, w, cache_k, cache_v, mem_k, mem_v,
     cross-attention weights, k_new [L, B, C], v_new [L, B, C] in the cache
     type); the caller writes k_new/v_new into the caches at ``step``.
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.  The kernel takes weights, caches and memory of one type (fp32 or
-    bf16), head dims that are a multiple of 16 bytes (D % 8 == 0 in bf16,
-    D % 4 == 0 in fp32) up to 256, and at most 16384 cache or memory
-    positions.  ``trace``, an int64 CUDA tensor of
-    len(STAGES) * L + 2 elements, receives the kernel's stage timeline.
-    The kernel is deterministic; values beyond 2^24 give NaN outputs (see
-    the module's docstring).
+    raise.  The kernel reads ``w["tiles"]`` and ``w["lns"]``, takes weights,
+    caches and memory of one type (fp32 or bf16), head dims whose rows are
+    a multiple of 16 bytes (D % 8 == 0 in bf16, D % 4 == 0 in fp32) and at
+    most 4 KB (D <= 2048 in bf16, 1024 in fp32), any cache or memory
+    length, C <= 2048, and C and F whose staged
+    activations leave two ring slots of shared memory.  ``trace``, an int64
+    CUDA tensor of len(STAGES) * L + 2 elements, receives the kernel's
+    stage timeline.  The kernel is deterministic.  Launches on one stream
+    run one after another: they share the grid barrier's state.
     """
     step = int(step)
     _check(x, step, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads)
@@ -273,19 +409,24 @@ def decoder_frame_step(x, step: int, w, cache_k, cache_v, mem_k, mem_v,
     k_new = torch.empty((n_layers, b, c), dtype=cdt, device=dev)
     v_new = torch.empty((n_layers, b, c), dtype=cdt, device=dev)
     lib = _library()
-    # the residual stream, qkv, cross q and FFN hidden as fixed-point int64
-    # sums, ctx in fp32, the range flag
-    scratch = torch.empty((lib.decoder_step_scratch_bytes(b, c, f),),
-                          dtype=torch.uint8, device=dev)
+    grid, offsets, entries = _launch_tables(dev, c, f,
+                                            cache_k.element_size())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # attention logits, chunk statistics and contexts, qkv, cross q, the
+    # rounded context and FFN hidden, the exchange counters
+    scratch = torch.empty((lib.decoder_step_scratch_bytes(
+        cache_k.element_size(), n_layers, b, c, f, num_heads, t_cap, t_mem,
+        grid),),
+        dtype=torch.uint8, device=dev)
     err = lib.decoder_step(
         _DTYPE_CODES[cdt], x.data_ptr(), step, w["lns"].data_ptr(),
-        *(w[n].data_ptr() for n in _WEIGHTS), cache_k.data_ptr(),
-        cache_v.data_ptr(), mem_k.data_ptr(), mem_v.data_ptr(),
-        mem_bias.data_ptr(), x_out.data_ptr(), align.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), scratch.data_ptr(),
-        None if trace is None else trace.data_ptr(), n_layers, b, t_cap,
-        t_mem, c, f, num_heads,
-        torch.cuda.current_stream(dev).cuda_stream)
+        w["tiles"].data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+        mem_k.data_ptr(), mem_v.data_ptr(), mem_bias.data_ptr(),
+        x_out.data_ptr(), align.data_ptr(), k_new.data_ptr(),
+        v_new.data_ptr(), scratch.data_ptr(),
+        barrier_state(dev, stream).data_ptr(), offsets.data_ptr(),
+        entries.data_ptr(), None if trace is None else trace.data_ptr(),
+        n_layers, b, t_cap, t_mem, c, f, num_heads, grid, stream)
     if err != 0:
         raise RuntimeError("decoder_step launch failed: %s"
                            % lib.decoder_step_error_string(err).decode())
@@ -301,12 +442,13 @@ decoder_frame_step.launches = 0
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("decoder_step")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decoder_step.argtypes = [i, p, i] + [p] * 7 + [p] * 5 + [p] * 6 + \
-        [i] * 7 + [p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.decoder_step.argtypes = [i, p, i] + [p] * 16 + [i] * 8 + [p]
     lib.decoder_step.restype = i
-    lib.decoder_step_scratch_bytes.argtypes = [i, i, i]
-    lib.decoder_step_scratch_bytes.restype = ctypes.c_longlong
+    lib.decoder_step_scratch_bytes.argtypes = [i] * 9
+    lib.decoder_step_scratch_bytes.restype = ll
+    lib.decoder_step_smem_bytes.argtypes = [i] * 4
+    lib.decoder_step_smem_bytes.restype = ll
     lib.decoder_step_error_string.argtypes = [i]
     lib.decoder_step_error_string.restype = ctypes.c_char_p
     return lib

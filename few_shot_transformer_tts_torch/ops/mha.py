@@ -27,13 +27,15 @@ raises.  The fp32 kernels are scalar (TF32 stays off).
 
 Head dims.  The kernels are instantiated for every head dim that is a
 multiple of 32 from 32 to 256 (``KERNEL_HEAD_DIMS``), one library per head
-dim, built when a run first meets it (``cuda_build``).  Any other head dim
-up to 256 runs on the instantiation of the next multiple of 32
+dim, built when a run first meets it (``cuda_build``).  Head dims above 256
+run on ``csrc/mha_wide.cu``, one library whose kernels take the head dim at
+run time (a multiple of 32 up to ``MAX_HEAD_DIM`` = 1024) and stream it in
+128-wide chunks.  Any other head dim runs on the next multiple of 32
 (``kernel_head_dim``): the wrapper zero-pads each head's channels of q, k,
 v (and o, do) and slices the outputs back (``pad_heads``, ``unpad_heads``).
 That is exact: zero channels add nothing to q.k and give zero output
 columns, and the caller's softmax scale is passed as it is.  A head dim
-above 256 raises ``ValueError``.
+above 1024 raises ``ValueError``.
 
 The dropout mask is a pure function of (seed, b, h, q, k):
 ``dropout_keep_mask`` (Philox-4x32-10, the same bits as ``csrc/philox.cuh``).
@@ -53,7 +55,7 @@ from . import cuda_build
 NEG_INF = -1e20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = cuda_build.HEAD_DIMS
-MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+MAX_HEAD_DIM = 1024         # csrc/mha_wide.cu above KERNEL_HEAD_DIMS[-1]
 
 # Philox-4x32-10 constants (csrc/philox.cuh)
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -72,8 +74,10 @@ def _combine_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim of the kernel instantiation that runs head dim ``d``:
-    ``d`` rounded up to a multiple of 32; raises above ``MAX_HEAD_DIM``."""
+    """The head dim the kernels run head dim ``d`` at: ``d`` rounded up to
+    a multiple of 32 (one of ``KERNEL_HEAD_DIMS`` up to 256, the run-time
+    head dim of ``csrc/mha_wide.cu`` above); raises above
+    ``MAX_HEAD_DIM``."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError("the attention kernels take head dims 1 to %d, "
                          "got %d" % (MAX_HEAD_DIM, d))
@@ -294,10 +298,10 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
     q, k, v = (pad_heads(t, num_heads, dp) for t in (q, k, v))
     b, tq, c = q.shape
     tk = k.shape[1]
-    lib = _library("mha_fwd", dp)
+    fwd, err_string = _entry("mha_fwd", dp)
     o = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, tq, num_heads), dtype=torch.float32, device=q.device)
-    err = lib.mha_fwd(
+    err = fwd(
         _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), bias.data_ptr() if use_bias else None,
         seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
@@ -307,7 +311,7 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
         float(1.0 - rate), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("mha_fwd launch failed: %s"
-                           % lib.mha_fwd_error_string(err).decode())
+                           % err_string(err).decode())
     mha_forward.launches += 1
     return unpad_heads(o, num_heads, d), lse
 
@@ -339,13 +343,13 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
     q, k, v, o, do = (pad_heads(t, num_heads, dp) for t in (q, k, v, o, do))
     b, tq, c = q.shape
     tk = k.shape[1]
-    lib = _library("mha_bwd", dp)
+    bwd, err_string = _entry("mha_bwd", dp)
     dq = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, tq, num_heads), dtype=torch.float32,
                         device=q.device)
-    err = lib.mha_bwd(
+    err = bwd(
         _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), bias.data_ptr() if use_bias else None,
         seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
@@ -358,7 +362,7 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("mha_bwd launch failed: %s"
-                           % lib.mha_bwd_error_string(err).decode())
+                           % err_string(err).decode())
     mha_backward.launches += 1
     return tuple(unpad_heads(t, num_heads, d) for t in (dq, dk, dv))
 
@@ -397,25 +401,30 @@ def draw_seed(generator, device) -> torch.Tensor:
                          device=device, dtype=torch.int64)
 
 
-_ERROR_STRINGS = {"mha_fwd": "mha_fwd_error_string",
-                  "mha_bwd": "mha_bwd_error_string"}
+_FWD_ARGS = "i i p p p p p p p i i i i ll ll ll ll ll ll f i i i u f p"
+_BWD_ARGS = ("i i p p p p p p p p p p p p i i i i ll ll ll ll ll ll ll ll "
+             "ll ll f i i i u f p")
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint,
+           "f": ctypes.c_float, "ll": ctypes.c_longlong}
+
+
+def _bind(fn, spec: str, restype=ctypes.c_int):
+    fn.argtypes = [_CTYPES[c] for c in spec.split()]
+    fn.restype = restype
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _library(name: str, head_dim: int) -> ctypes.CDLL:
-    lib = cuda_build.load(name, head_dim)
-    p, i, u, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                      ctypes.c_float, ctypes.c_longlong)
-    if name == "mha_fwd":
-        lib.mha_fwd.argtypes = [i, i, p, p, p, p, p, p, p, i, i, i, i,
-                                ll, ll, ll, ll, ll, ll, f, i, i, i, u, f, p]
-        lib.mha_fwd.restype = i
+def _entry(name: str, head_dim: int):
+    """(entry, error string) of kernel ``name`` ("mha_fwd" or "mha_bwd")
+    for head dim ``head_dim`` (a value of ``kernel_head_dim``): from the
+    library of that head dim up to 256, from ``csrc/mha_wide.cu`` above."""
+    spec = _FWD_ARGS if name == "mha_fwd" else _BWD_ARGS
+    if head_dim > KERNEL_HEAD_DIMS[-1]:
+        lib = cuda_build.load("mha_wide")
+        fn = getattr(lib, name.replace("mha_", "mha_wide_"))
+        err = lib.mha_wide_error_string
     else:
-        lib.mha_bwd.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p, p,
-                                i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll,
-                                ll, ll, f, i, i, i, u, f, p]
-        lib.mha_bwd.restype = i
-    err_fn = getattr(lib, _ERROR_STRINGS[name])
-    err_fn.argtypes = [i]
-    err_fn.restype = ctypes.c_char_p
-    return lib
+        lib = cuda_build.load(name, head_dim)
+        fn, err = getattr(lib, name), getattr(lib, name + "_error_string")
+    return _bind(fn, spec), _bind(err, "i", ctypes.c_char_p)

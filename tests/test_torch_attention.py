@@ -1,6 +1,7 @@
 """The port's attention: ``mha_forward`` (CPU path, the kernel's plain
 version) against the JAX package's Pallas kernel ``mha_train`` in interpret
-mode (head dims 64, and 32, 48 and 128), the head-dim rule of the CUDA
+mode (head dims 64, and 32, 48, 128, and 288 and 384 of csrc/mha_wide.cu),
+the head-dim rule of the CUDA
 kernels and the padding it implies, and the port's ``MultiheadAttention``
 against the JAX module.
 
@@ -65,7 +66,10 @@ def _lse_reference(q, k, bias, scale, causal):
     (2, 50, 70, False, 32 ** -0.5, [70, 40], 32),
     (2, 40, 40, True, 48 ** -0.5, None, 48),
     (2, 37, 45, False, 128 ** -0.5, [45, 20], 128),
-], ids=["bias", "causal", "tq600", "d32_bias", "d48_causal", "d128_bias"])
+    (2, 33, 33, True, 288 ** -0.5, None, 288),
+    (2, 29, 41, False, 384 ** -0.5, [41, 17], 384),
+], ids=["bias", "causal", "tq600", "d32_bias", "d48_causal", "d128_bias",
+        "d288_causal", "d384_bias"])
 def test_mha_forward_matches_pallas_interpret(b, tq, tk, causal, scale,
                                               valid, d):
     q, k, v, bias = _qkv(b, tq, tk, seed=tq, valid=valid, d=d)
@@ -127,19 +131,25 @@ def test_alignment_check_rejects_views_off_16_bytes(view):
 
 
 def test_head_dim_rule_picks_the_next_multiple_of_32():
-    """Which instantiation takes which head dim, checked without building:
-    a multiple of 32 up to 256 runs as it is, any other D up to 256 on the
-    next multiple of 32 (padded), and above 256 nothing."""
+    """Which kernel takes which head dim, checked without building: a
+    multiple of 32 up to 256 runs on its own instantiation, above 256 on the
+    run-time head dim of csrc/mha_wide.cu, any other D up to 1024 on the
+    next multiple of 32 (padded), and above 1024 nothing."""
     assert KERNEL_HEAD_DIMS == (32, 64, 96, 128, 160, 192, 224, 256)
-    assert MAX_HEAD_DIM == 256
+    assert MAX_HEAD_DIM == 1024
     for d in range(1, MAX_HEAD_DIM + 1):
         k = kernel_head_dim(d)
-        assert k in KERNEL_HEAD_DIMS and d <= k < d + 32, d
+        assert k % 32 == 0 and d <= k < d + 32, d
         assert (k == d) == (d % 32 == 0), d
+        assert (k in KERNEL_HEAD_DIMS) == (d <= 256), d
     assert [kernel_head_dim(d) for d in (8, 12, 48, 80, 96, 100, 200)] == \
         [32, 32, 64, 96, 96, 128, 224]
-    for d in (257, 288, 512, 0):
-        with pytest.raises(ValueError, match="1 to 256"):
+    # above 256: run (padded to a multiple of 32), not refused
+    assert [kernel_head_dim(d) for d in (257, 288, 300, 384, 512, 768,
+                                         1000, 1024)] == \
+        [288, 288, 320, 384, 512, 768, 1024, 1024]
+    for d in (1025, 1056, 2048, 0):
+        with pytest.raises(ValueError, match="1 to 1024"):
             kernel_head_dim(d)
     # one library per (source, head dim), named and hashed by it, and a
     # per-head-dim source without one is refused before any build
@@ -153,6 +163,11 @@ def test_head_dim_rule_picks_the_next_multiple_of_32():
         cuda_build.load("mha_bwd")
     with pytest.raises(ValueError, match="without a head dim"):
         cuda_build.load("fused_adam", 64)
+    # above 256 one library, built without a head dim
+    assert "mha_wide" in cuda_build.sources()
+    assert "mha_wide" not in cuda_build.HEAD_DIM_SOURCES
+    with pytest.raises(ValueError, match="without a head dim"):
+        cuda_build.load("mha_wide", 384)
 
 
 @pytest.mark.parametrize("d", [8, 12, 48])

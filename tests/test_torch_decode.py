@@ -61,9 +61,11 @@ def assert_rel(got, want, tol, what):
 
 
 # (step, Tm, n_layers, C, H): steps around the 256-frame cache blocks,
-# memory held in VMEM (Tm=256) and streamed (Tm=512), and D=96
+# memory held in VMEM (Tm=256) and streamed (Tm=512 and 768), D=96 and D=384
 CASES = [(s, tm, 2, 48, 4) for tm in (256, 512)
-         for s in (0, 1, 255, 256, 300)] + [(257, 256, 1, 768, 8)]
+         for s in (0, 1, 255, 256, 300)] + [(257, 256, 1, 768, 8)] + \
+    [(300, 256, 1, 768, 2),      # D=384, the flagship width with 2 heads
+     (40, 768, 1, 64, 2)]        # a memory three TPU blocks long
 
 
 @pytest.mark.parametrize("step,t_mem,n_layers,c,heads", CASES,
@@ -146,7 +148,12 @@ def test_stacking_and_memory_projection_match_jax():
     w = decode.stack_decoder_params(model.decoder.decoder, torch.float32)
     want = jax_decode.stack_decoder_params(
         variables["params"]["decoder"]["decoder"], HP.n_decoder_layer)
-    assert sorted(w) == sorted(want)
+    # the JAX stacking, plus the kernel's tiled copy of it
+    assert sorted(w) == sorted(list(want) + ["tiles"])
+    back = decode.unpack_decoder_weights(w["tiles"], HP.decoder_hidden,
+                                         w["w_ffn1"].shape[-1])
+    for name in back:
+        assert torch.equal(back[name], w[name]), name
     for name in want:
         assert w[name].shape == want[name].shape, name
         np.testing.assert_array_equal(w[name].numpy(),
@@ -304,3 +311,74 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     got = decode.decoder_frame_step(*args, num_heads=2)
     assert [tuple(g.shape) for g in got] == [(2, 16), (1, 2, 256, 2),
                                              (1, 2, 16), (1, 2, 16)]
+
+
+@pytest.mark.parametrize("c,f,dtype", [(768, 3072, torch.bfloat16),
+                                       (48, 200, torch.float32),
+                                       (40, 136, torch.bfloat16)],
+                         ids=["flagship_bf16", "c48_fp32", "ragged_bf16"])
+def test_weight_tiles_cover_every_weight_once_and_round_trip(c, f, dtype):
+    """``pack_decoder_weights``: every weight lands in exactly one place of
+    the tiled copy (the rest is zero padding), in the mma A-fragment order
+    the kernel reads, and unpacks to the stacked matrices."""
+    n_layers = 2
+    shapes = {"w_qkv": (c, 3 * c), "w_out": (c, c), "w_q": (c, c),
+              "w_xout": (c, c), "w_ffn1": (c, f), "w_ffn2": (f, c)}
+    # distinct values (exact in bf16 below 256 per matrix is not needed:
+    # positions are checked through a numbered copy in fp32)
+    w, numbered, start = {}, {}, 1
+    for name, (k, n) in shapes.items():
+        w[name] = torch.randn(n_layers, k, n).to(dtype)
+        numbered[name] = (torch.arange(n_layers * k * n, dtype=torch.float64)
+                          + start).reshape(n_layers, k, n)
+        start += n_layers * k * n
+    tiles = decode.pack_decoder_weights(w)
+    assert tiles.dtype == dtype and tiles.is_contiguous()
+    assert tiles.shape == (n_layers, decode.layer_elems(c, f))
+    back = decode.unpack_decoder_weights(tiles, c, f)
+    for name in shapes:
+        assert torch.equal(back[name], w[name]), name
+    ids = decode.pack_decoder_weights(numbered)
+    got = np.sort(ids[ids > 0].numpy())
+    np.testing.assert_array_equal(got, np.arange(1, start))
+    # fragment order: lane 4g + t's first register holds W[k0 + 2t, n0 + g]
+    # and W[k0 + 2t + 1, n0 + g] of the first tile of the first unit
+    first = ids[0, :256].reshape(32, 8)
+    m = numbered["w_qkv"][0]
+    for lane in (0, 5, 31):
+        g, t = lane // 4, lane % 4
+        assert first[lane, 0] == m[2 * t, g]
+        assert first[lane, 1] == m[2 * t + 1, g]
+        assert first[lane, 2] == m[2 * t, g + 8]
+        assert first[lane, 5] == m[2 * t + 9, g]
+        assert first[lane, 7] == m[2 * t + 9, g + 8]
+
+
+@pytest.mark.parametrize("c,f,elt,grid", [(768, 3072, 2, 132),
+                                          (768, 3072, 4, 132),
+                                          (128, 512, 2, 132),
+                                          (40, 136, 2, 7)])
+def test_schedule_gives_every_unit_one_owner_and_balances_bytes(c, f, elt,
+                                                                grid):
+    """``decoder_schedule``: each 16-column unit of each stage's product
+    has exactly one block, a block's entries run stage by stage, and no
+    block streams more than one unit above the mean of a layer's bytes."""
+    offsets, entries = decode.decoder_schedule(c, f, elt, grid)
+    assert offsets.shape == (grid + 1,) and offsets[0] == 0
+    assert offsets[-1] == len(entries)
+    shapes = decode._stage_shapes(c, f)
+    want = sorted(s << 16 | u for s, (_, n) in enumerate(shapes)
+                  for u in range((n + 15) // 16))
+    assert sorted(entries.tolist()) == want
+    cost = [((k + 15) // 16 * 16) * 16 * elt + decode._UNIT_COST
+            for k, _ in shapes]
+    loads = []
+    for g in range(grid):
+        mine = entries[offsets[g]:offsets[g + 1]].tolist()
+        assert mine == sorted(mine)
+        loads.append(sum(cost[e >> 16] for e in mine))
+    assert max(loads) - sum(loads) / grid <= max(cost)
+    # the flagship's layer, 16.5 MB of bf16 weights, on 132 SMs
+    if (c, f, elt, grid) == (768, 3072, 2, 132):
+        assert decode.layer_elems(c, f) * 2 == 16515072
+        assert max(loads) <= 1.15 * sum(loads) / grid

@@ -60,8 +60,8 @@ def test_kernel_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "_loaded", {})
     sources = cuda_build.sources()
     assert sources == sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
-    assert {"mha_fwd", "mha_bwd", "layernorm_bwd", "decoder_step",
-            "frame_mel", "fused_adam"} <= set(sources)
+    assert {"mha_fwd", "mha_bwd", "mha_wide", "layernorm_bwd",
+            "decoder_step", "frame_mel", "fused_adam"} <= set(sources)
     for name in sources:
         # the attention sources build once per head dim
         d = 64 if name in cuda_build.HEAD_DIM_SOURCES else None

@@ -3,7 +3,7 @@ kernels in interpret mode, and the autograd Functions that carry them.
 
 - ``mha_backward_plain`` against ``jax.vjp`` of ``mha_train`` at rate 0
   (self-attention with bias, causal, cross-attention with bias; Tk not a
-  multiple of 32; head dim 64, and 32, 48 and 128).  Tolerance 2e-5, as
+  multiple of 32; head dim 64, and 32, 48, 128, 288 and 384).  Tolerance 2e-5, as
   for the forward.
 - ``MhaFunction``'s gradients against torch autograd through
   ``mha_forward_plain`` at rates 0 and 0.1 (one mask function serves both).
@@ -43,6 +43,10 @@ CASES = {
     "causal_d48": dict(b=2, tq=37, tk=37, causal=True, valid=None, d=48),
     "cross_bias_d128": dict(b=2, tq=40, tk=70, causal=False, valid=[70, 41],
                             d=128),
+    # above 256, the run-time head dim of csrc/mha_wide.cu
+    "causal_d288": dict(b=2, tq=33, tk=33, causal=True, valid=None, d=288),
+    "cross_bias_d384": dict(b=2, tq=29, tk=41, causal=False, valid=[41, 17],
+                            d=384),
 }
 
 
