@@ -110,20 +110,6 @@ struct Args {
   float inv_keep;
 };
 
-// sum of the eight products of two 16-byte bf16 vectors, in fp32
-__device__ __forceinline__ float dot_bf16x8(uint4 x, uint4 y) {
-  const uint32_t* u = reinterpret_cast<const uint32_t*>(&x);
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(&y);
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 a = tc::unpack_bf16(u[i]), b = tc::unpack_bf16(w[i]);
-    sum += a.x * b.x;
-    sum += a.y * b.y;
-  }
-  return sum;
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -228,7 +214,7 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
         x = tc::scale_bf16x8(
             *reinterpret_cast<const uint4*>(qb + qi * a.q_sr + col), a.scale);
         y = *reinterpret_cast<const uint4*>(dob + qi * a.do_sr + col);
-        part += dot_bf16x8(
+        part += tc::dot_bf16x8(
             y, *reinterpret_cast<const uint4*>(ob + qi * a.o_sr + col));
       }
       *reinterpret_cast<uint4*>(qs_s + r * S + col) = x;

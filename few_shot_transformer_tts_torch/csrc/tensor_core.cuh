@@ -1,6 +1,7 @@
 // Tensor-core building blocks of the bf16 attention kernels (mha_fwd.cu,
-// mha_bwd.cu): 16-byte asynchronous copies into shared memory, ldmatrix and
-// mma.sync m16n8k16 (bf16 operands, fp32 accumulators), as sm_80+ PTX.
+// mha_bwd.cu, mha_wide.cu): 16-byte asynchronous copies into shared memory,
+// ldmatrix and mma.sync m16n8k16 (bf16 operands, fp32 accumulators), as
+// sm_80+ PTX.
 //
 // Fragment layout of mma.m16n8k16 for lane = 4 * g + t (g = lane / 4,
 // t = lane % 4):
@@ -109,6 +110,20 @@ __device__ __forceinline__ uint4 scale_bf16x8(uint4 x, float s) {
     w[i] = pack_bf16(f.x * s, f.y * s);
   }
   return x;
+}
+
+// Sum of the eight products of two 16-byte bf16 vectors, in fp32.
+__device__ __forceinline__ float dot_bf16x8(uint4 x, uint4 y) {
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(&x);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&y);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = unpack_bf16(u[i]), b = unpack_bf16(w[i]);
+    sum += a.x * b.x;
+    sum += a.y * b.y;
+  }
+  return sum;
 }
 
 // The A fragment of a 16 x 16 product from the fp32 accumulators of two

@@ -29,8 +29,12 @@ Head dims.  The kernels are instantiated for every head dim that is a
 multiple of 32 from 32 to 256 (``KERNEL_HEAD_DIMS``), one library per head
 dim, built when a run first meets it (``cuda_build``).  Head dims above 256
 run on ``csrc/mha_wide.cu``, one library whose kernels take the head dim at
-run time (a multiple of 32 up to ``MAX_HEAD_DIM`` = 1024) and stream it in
-128-wide chunks.  Any other head dim runs on the next multiple of 32
+run time (a multiple of 32 up to ``MAX_HEAD_DIM`` = 1024): in bf16 on the
+tensor cores, each block owning a slice of at most 256 output columns, and
+each score tile computed once and kept, with the backward's two rounded
+T x T operands (g and ds * scale), in a workspace that the wrapper
+allocates (``wide_workspace``); in fp32 scalar, in 128-wide chunks.  Any
+other head dim runs on the next multiple of 32
 (``kernel_head_dim``): the wrapper zero-pads each head's channels of q, k,
 v (and o, do) and slices the outputs back (``pad_heads``, ``unpad_heads``).
 That is exact: zero channels add nothing to q.k and give zero output
@@ -82,6 +86,24 @@ def kernel_head_dim(d: int) -> int:
         raise ValueError("the attention kernels take head dims 1 to %d, "
                          "got %d" % (MAX_HEAD_DIM, d))
     return -(-d // 32) * 32
+
+
+def wide_workspace(direction: str, batch: int, num_heads: int, tq: int,
+                   tk: int):
+    """(shape, dtype) of the workspace that ``csrc/mha_wide.cu`` takes in
+    bf16 (head dims above 256), Tq and Tk rounded up to its 64-row tiles
+    (Tq64, Tk64).  "forward": fp32 [B, H, Tq64, Tk64 + 3 * Tk64 / 64],
+    each 64 x 64 score tile once, then each tile's row maxima, then its
+    dropout mask (128 words); "backward": bf16 [2, B, H, Tq64, Tk64],
+    round(g), then round(ds * scale)."""
+    tq64, tk64 = -(-tq // 64) * 64, -(-tk // 64) * 64
+    if direction == "forward":
+        return (batch, num_heads, tq64, tk64 + 3 * (tk64 // 64)), \
+            torch.float32
+    if direction == "backward":
+        return (2, batch, num_heads, tq64, tk64), torch.bfloat16
+    raise ValueError("direction must be 'forward' or 'backward', got %r"
+                     % (direction,))
 
 
 def pad_heads(x: torch.Tensor, num_heads: int, dp: int) -> torch.Tensor:
@@ -274,6 +296,24 @@ def _check_cuda(q, k, v, bias, num_heads, use_bias, *others):
                          "device")
 
 
+def _wide_workspace(direction, dp, q, num_heads, tk):
+    """A fresh ``wide_workspace`` for ``csrc/mha_wide.cu`` in bf16 (head
+    dim ``dp`` above 256), else None."""
+    if dp <= KERNEL_HEAD_DIMS[-1] or q.dtype != torch.bfloat16:
+        return None
+    shape, dtype = wide_workspace(direction, q.shape[0], num_heads,
+                                  q.shape[1], tk)
+    return torch.empty(shape, dtype=dtype, device=q.device)
+
+
+def _workspace_arg(dp, ws) -> tuple:
+    """The workspace argument of ``csrc/mha_wide.cu`` (after lse, or after
+    delta); the entries of the narrower head dims take none."""
+    if dp <= KERNEL_HEAD_DIMS[-1]:
+        return ()
+    return (None if ws is None else ws.data_ptr(),)
+
+
 def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
                 use_bias: bool, rate: float = 0.0, seed=None):
     """Attention forward over packed heads: (o [B,Tq,H*D], lse [B,Tq,H]).
@@ -301,14 +341,16 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
     fwd, err_string = _entry("mha_fwd", dp)
     o = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, tq, num_heads), dtype=torch.float32, device=q.device)
+    ws = _wide_workspace("forward", dp, q, num_heads, tk)
     err = fwd(
         _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), bias.data_ptr() if use_bias else None,
         seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
-        b, tq, tk, num_heads, q.stride(0), q.stride(1), k.stride(0),
-        k.stride(1), v.stride(0), v.stride(1), float(scale), int(causal),
-        int(use_bias), int(rate > 0.0), dropout_threshold(rate),
-        float(1.0 - rate), torch.cuda.current_stream(q.device).cuda_stream)
+        *_workspace_arg(dp, ws), b, tq, tk, num_heads, q.stride(0),
+        q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        float(scale), int(causal), int(use_bias), int(rate > 0.0),
+        dropout_threshold(rate), float(1.0 - rate),
+        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("mha_fwd launch failed: %s"
                            % err_string(err).decode())
@@ -323,21 +365,22 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
 
     Takes the forward's inputs and its (o, lse), and ``do`` [B,Tq,H*D].  The
     bias gets no gradient.  CPU tensors take the plain version; CUDA tensors
-    launch the two kernels of ``csrc/mha_bwd.cu`` (counted as one call; a
-    head dim that is not a multiple of 32 padded as in ``mha_forward``) or
-    raise."""
+    launch the kernels of ``csrc/mha_bwd.cu`` (above head dim 256
+    ``csrc/mha_wide.cu``; counted as one call; a head dim that is not a
+    multiple of 32 padded as in ``mha_forward``) or raise."""
     _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
     if q.device.type == "cpu":
         return mha_backward_plain(q, k, v, bias, seed, o, lse, do, num_heads,
                                   causal, scale, use_bias, rate)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
+            lse.shape != (q.shape[0], q.shape[1], num_heads) or \
+            lse.dtype != torch.float32 or not lse.is_contiguous() or \
+            lse.device != q.device:
+        raise ValueError("o and do must be [B,Tq,C], o in q's type, and lse "
+                         "a contiguous float32 [B,Tq,H] on q's device")
     if do.dtype != q.dtype or do.stride(2) != 1 or _misaligned(do):
         do = do.to(q.dtype, memory_format=torch.contiguous_format, copy=True)
     _check_cuda(q, k, v, bias, num_heads, use_bias, o, do)
-    if o.shape != q.shape or do.shape != q.shape or \
-            lse.shape != (q.shape[0], q.shape[1], num_heads) or \
-            lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError("o and do must be [B,Tq,C] and lse a contiguous "
-                         "float32 [B,Tq,H]")
     d = q.shape[2] // num_heads
     dp = kernel_head_dim(d)
     q, k, v, o, do = (pad_heads(t, num_heads, dp) for t in (q, k, v, o, do))
@@ -349,14 +392,16 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
     dv = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
     delta = torch.empty((b, tq, num_heads), dtype=torch.float32,
                         device=q.device)
+    ws = _wide_workspace("backward", dp, q, num_heads, tk)
     err = bwd(
         _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), bias.data_ptr() if use_bias else None,
         seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        delta.data_ptr(), b, tq, tk, num_heads, q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), v.stride(0), v.stride(1), o.stride(0),
-        o.stride(1), do.stride(0), do.stride(1), float(scale), int(causal),
+        delta.data_ptr(), *_workspace_arg(dp, ws), b, tq, tk, num_heads,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1), o.stride(0), o.stride(1), do.stride(0), do.stride(1),
+        float(scale), int(causal),
         int(use_bias), int(rate > 0.0), dropout_threshold(rate),
         float(1.0 / (1.0 - rate)),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -404,6 +449,10 @@ def draw_seed(generator, device) -> torch.Tensor:
 _FWD_ARGS = "i i p p p p p p p i i i i ll ll ll ll ll ll f i i i u f p"
 _BWD_ARGS = ("i i p p p p p p p p p p p p i i i i ll ll ll ll ll ll ll ll "
              "ll ll f i i i u f p")
+# csrc/mha_wide.cu's: the workspace after lse (forward) or delta
+_WIDE_FWD_ARGS = "i i p p p p p p p p i i i i ll ll ll ll ll ll f i i i u f p"
+_WIDE_BWD_ARGS = ("i i p p p p p p p p p p p p p i i i i ll ll ll ll ll ll "
+                  "ll ll ll ll f i i i u f p")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint,
            "f": ctypes.c_float, "ll": ctypes.c_longlong}
 
@@ -421,6 +470,7 @@ def _entry(name: str, head_dim: int):
     library of that head dim up to 256, from ``csrc/mha_wide.cu`` above."""
     spec = _FWD_ARGS if name == "mha_fwd" else _BWD_ARGS
     if head_dim > KERNEL_HEAD_DIMS[-1]:
+        spec = _WIDE_FWD_ARGS if name == "mha_fwd" else _WIDE_BWD_ARGS
         lib = cuda_build.load("mha_wide")
         fn = getattr(lib, name.replace("mha_", "mha_wide_"))
         err = lib.mha_wide_error_string

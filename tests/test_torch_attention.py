@@ -1,9 +1,9 @@
 """The port's attention: ``mha_forward`` (CPU path, the kernel's plain
 version) against the JAX package's Pallas kernel ``mha_train`` in interpret
-mode (head dims 64, and 32, 48, 128, and 288 and 384 of csrc/mha_wide.cu),
-the head-dim rule of the CUDA
-kernels and the padding it implies, and the port's ``MultiheadAttention``
-against the JAX module.
+mode (head dims 64, and 32, 48, 128, and 288, 384, 512 and 1024 of
+csrc/mha_wide.cu), the head-dim rule of the CUDA kernels and the padding it
+implies, the wide kernels' workspaces, and the port's
+``MultiheadAttention`` against the JAX module.
 
 Tolerances: fp32 throughout; 2e-5 for the kernel counterpart (as the JAX
 package's own kernel tests), 1e-5 for the module paths; padded heads give
@@ -28,7 +28,7 @@ from few_shot_transformer_tts_torch.ops import cuda_build
 from few_shot_transformer_tts_torch.ops.mha import (
     KERNEL_HEAD_DIMS, MAX_HEAD_DIM, check_alignment, kernel_head_dim,
     mha_backward_plain, mha_forward, mha_forward_plain, pad_heads,
-    unpad_heads)
+    unpad_heads, wide_workspace)
 from few_shot_transformer_tts_torch.train.converter import \
     state_dict_from_jax_variables
 
@@ -68,8 +68,10 @@ def _lse_reference(q, k, bias, scale, causal):
     (2, 37, 45, False, 128 ** -0.5, [45, 20], 128),
     (2, 33, 33, True, 288 ** -0.5, None, 288),
     (2, 29, 41, False, 384 ** -0.5, [41, 17], 384),
+    (2, 35, 35, True, 512 ** -0.5, None, 512),
+    (1, 27, 38, False, 1024 ** -0.5, [38], 1024),
 ], ids=["bias", "causal", "tq600", "d32_bias", "d48_causal", "d128_bias",
-        "d288_causal", "d384_bias"])
+        "d288_causal", "d384_bias", "d512_causal", "d1024_bias"])
 def test_mha_forward_matches_pallas_interpret(b, tq, tk, causal, scale,
                                               valid, d):
     q, k, v, bias = _qkv(b, tq, tk, seed=tq, valid=valid, d=d)
@@ -168,6 +170,31 @@ def test_head_dim_rule_picks_the_next_multiple_of_32():
     assert "mha_wide" not in cuda_build.HEAD_DIM_SOURCES
     with pytest.raises(ValueError, match="without a head dim"):
         cuda_build.load("mha_wide", 384)
+
+
+def test_wide_workspaces_hold_every_tile():
+    """csrc/mha_wide.cu's workspaces: Tq and Tk rounded up to its 64-row
+    tiles; forward fp32, per query row its scores, one maximum and two mask
+    words per key tile (a tile: 4096 scores, 64 maxima, 128 words);
+    backward bf16, round(g) and round(ds * scale) of every pair."""
+    for b, h, tq, tk in ((16, 2, 448, 448), (16, 2, 448, 192), (3, 1, 141,
+                                                                    141),
+                         (4, 2, 200, 50), (1, 3, 1, 1), (2, 1, 64, 65)):
+        nq, nk = -(-tq // 64), -(-tk // 64)
+        shape, dtype = wide_workspace("forward", b, h, tq, tk)
+        assert dtype == torch.float32
+        assert shape == (b, h, nq * 64, nk * 64 + 3 * nk)
+        assert int(np.prod(shape)) == b * h * nq * nk * (4096 + 64 + 128)
+        shape, dtype = wide_workspace("backward", b, h, tq, tk)
+        assert dtype == torch.bfloat16
+        assert shape == (2, b, h, nq * 64, nk * 64)
+    # the flagship decoder's train shape with 2 heads (D=384): ~26 MB each
+    fwd, _ = wide_workspace("forward", 16, 2, 448, 448)
+    bwd, _ = wide_workspace("backward", 16, 2, 448, 448)
+    assert int(np.prod(fwd)) * 4 == 26_894_336
+    assert int(np.prod(bwd)) * 2 == 25_690_112
+    with pytest.raises(ValueError, match="direction"):
+        wide_workspace("sideways", 1, 1, 1, 1)
 
 
 @pytest.mark.parametrize("d", [8, 12, 48])

@@ -3,8 +3,8 @@ kernels in interpret mode, and the autograd Functions that carry them.
 
 - ``mha_backward_plain`` against ``jax.vjp`` of ``mha_train`` at rate 0
   (self-attention with bias, causal, cross-attention with bias; Tk not a
-  multiple of 32; head dim 64, and 32, 48, 128, 288 and 384).  Tolerance 2e-5, as
-  for the forward.
+  multiple of 32; head dim 64, and 32, 48, 128, 288, 384, 512 and 1024).
+  Tolerance 2e-5, as for the forward.
 - ``MhaFunction``'s gradients against torch autograd through
   ``mha_forward_plain`` at rates 0 and 0.1 (one mask function serves both).
   Tolerance 1e-5: the same fp32 math in another order.
@@ -47,6 +47,9 @@ CASES = {
     "causal_d288": dict(b=2, tq=33, tk=33, causal=True, valid=None, d=288),
     "cross_bias_d384": dict(b=2, tq=29, tk=41, causal=False, valid=[41, 17],
                             d=384),
+    "causal_d512": dict(b=2, tq=35, tk=35, causal=True, valid=None, d=512),
+    "cross_bias_d1024": dict(b=1, tq=27, tk=38, causal=False, valid=[38],
+                             d=1024),
 }
 
 
