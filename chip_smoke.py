@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0] [--out-dir build/chip_smoke]
                           [--phases all] [--parent-decoder PATH]
-                          [--parent-wide PATH]
+                          [--parent-wide PATH] [--parent-ln PATH]
 
 Needs one CUDA card, nvcc and the repository checkout; imports nothing of
 JAX.  Phases, each printed as one JSON line on stdout (any failure is an
@@ -28,10 +28,26 @@ uncaught exception and a non-zero exit):
      plus an fp32 case and edge cases (causal Tq=600, Tk=77, a causal D=64
      T=77, and one 50-key tile held at TOL_L2): mha_forward at dropout 0.1
      (same seed, so the same mask), mha_backward at rate 0 and 0.1 (dq, dk,
-     dv; a second call must give the same bits), layer_norm_backward at
-     3072x512 and 7168x768.  Each row: error against tolerance, kernel /
-     plain / library ms, bound ms and what binds it, ms_over_library,
-     bound_share, launches per train step.
+     dv; a second call must give the same bits).  Each row: error against
+     tolerance, kernel / plain / library ms, bound ms and what binds it,
+     ms_over_library, bound_share, launches per train step.
+  4a. ln_kernel_check: layer_norm_backward (csrc/layernorm_bwd.cu, one
+     cooperative launch) against its plain version at the train step's
+     shapes, 3072x512 and 7168x768 bf16, and at 7 x 48, 7168 x 768 fp32,
+     7169 x 768 (rows ragged against the blocks), 3 x 768 (fewer rows than
+     blocks), C=44 bf16 (the scalar-load variant), a misaligned x view
+     (scalar too) and 2049 x 1024 fp32: errors against TOL_LN, a second
+     call the same bits, the launch plan and its variant, kernel / plain /
+     aten ms warm, the kernel cold (the L2 flushed before each call,
+     outside the span timed: l2_flusher) by CUDA events and by the
+     profiler against the bytes bound, the kernel's stages from its trace
+     stamps, the wrapper's host time per call; the plain LayerNorm
+     forward's kernels per call (profiler).  With ``--parent-ln PATH`` (a
+     parent commit's csrc/layernorm_bwd.cu) it builds that library too and
+     times parent, change, change, parent at the two train shapes, warm,
+     cold and host time, in this call (the change must be no slower warm
+     or cold), and phase 9 profiles one more step with the parent's
+     kernel in place.
   4b. head_dim_check: the attention kernels at the head dims the flagship
      widths give with other head counts, bf16, B=16 train shapes, as in
      phase 4 (TOL_TRAIN, TOL_L2, a repeated backward bit-identical, kernel
@@ -100,7 +116,8 @@ uncaught exception and a non-zero exit):
      Adam steps at the default dropout rates with 18 mha_forward, 18
      mha_backward and 32 layer_norm_backward calls in every step, finite
      and falling losses; sec/step, audio s/s, MFU, peak memory, and a
-     torch.profiler window of one step.
+     torch.profiler window of one step (with the LayerNorm backward's
+     device ms and launches in it).
   10. train_cli: ``python -m few_shot_transformer_tts_torch.train`` in-process
      on a tiny synthetic corpus the script writes (small widths, 4 heads:
      head dims 32 and 48): 3 steps with a checkpoint, then a resume for 1
@@ -162,6 +179,7 @@ from few_shot_transformer_tts_torch.models.tacotron import (compute_loss,
 from few_shot_transformer_tts_torch.infer import vocode_batch
 from few_shot_transformer_tts_torch.ops import cuda_build, dsp, dsp_torch
 from few_shot_transformer_tts_torch.ops import decode as decode_ops
+from few_shot_transformer_tts_torch.ops import layernorm as layernorm_ops
 from few_shot_transformer_tts_torch.ops import mha as mha_ops
 from few_shot_transformer_tts_torch.ops.decode import (
     STAGES, decoder_frame_step, decoder_frame_step_plain, project_memory,
@@ -321,6 +339,71 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def l2_flusher(dirty=False, flush_bytes=64 << 20):
+    """A function that flushes the L2 cache: it writes ``flush_bytes`` (more
+    than the H100's 50 MB L2), then reads as many of another buffer, so that
+    the next kernel finds none of its data in L2 and no dirty line whose
+    write-back it would pay for; ``dirty``: the write alone."""
+    buf = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
+    other = torch.ones_like(buf)
+
+    def flush():
+        buf.fill_(1.0)
+        if not dirty:
+            other.sum()
+    return flush
+
+
+def cold_ms(fn, iters, dirty=False):
+    """Mean device time of fn with the L2 cache flushed before each call
+    (l2_flusher), the flush outside the span timed: CUDA events around the
+    call alone, queued while a sleep kernel holds the card."""
+    flush = l2_flusher(dirty)
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for start, end in events:
+        flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def cold_kernel_ms(fn, name, iters=20):
+    """Mean device duration of the kernels whose name holds ``name`` that fn
+    launches, the L2 flushed before each call (torch.profiler: the kernels'
+    own time, without the launch around them that CUDA events include)."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = l2_flusher()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in device_kernels(prof)[0] if name in e.key]
+    return sum(e.self_device_time_total for e in events) / 1e3 / iters
+
+
+def host_us(fn, n=50):
+    """Host microseconds per call of fn while a sleep kernel holds the card
+    (so no call waits on the device)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    tic = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - tic) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def kernel_split_ms(fn, iters=10):
@@ -624,51 +707,6 @@ def check_train_attention(name, rng, b, tq, tk, c, heads, causal, lengths,
     return rows
 
 
-def check_layernorm(name, rng, n, c, launches_per_step,
-                    dtype=torch.bfloat16, iters=50):
-    x = torch.from_numpy((rng.randn(n, c) * 2 + 0.5).astype(
-        np.float32)).to("cuda", dtype)
-    gamma = torch.from_numpy((1 + 0.1 * rng.randn(c)).astype(
-        np.float32)).cuda()
-    beta = torch.from_numpy((0.1 * rng.randn(c)).astype(np.float32)).cuda()
-    dy = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(
-        "cuda", dtype)
-    got = layer_norm_backward(x, gamma, dy)
-    want = layer_norm_backward_plain(x, gamma, dy)
-    torch.cuda.synchronize()
-    errs = {n_: rel_err(g, w) for n_, g, w in
-            zip(("dx", "dgamma", "dbeta"), got, want)}
-    # the library call: aten's LayerNorm backward from its own forward's
-    # statistics (E[(x - mean)^2], so no error is compared)
-    _, mean, rstd = torch.ops.aten.native_layer_norm(
-        x, [c], gamma.to(dtype), beta.to(dtype), 1e-6)
-    bound_ms, bound_by, nbytes, flops = layernorm_bound(n, c, dtype)
-    tol = TOL_LN[dtype]
-    row = {"phase": "train_kernel_check", "kernel": "layer_norm_backward",
-           "case": name, "dtype": str(dtype), "rows": n, "C": c,
-           "launches_per_train_step": launches_per_step,
-           **{"rel_err_" + k: v for k, v in errs.items()},
-           "max_abs_err_dx": abs_err(got[0], want[0]),
-           "max_abs_dx": want[0].float().abs().max().item(),
-           **{"tol_" + k: v for k, v in tol.items()},
-           **timings(
-               cuda_ms(lambda: layer_norm_backward(x, gamma, dy), iters),
-               cuda_ms(lambda: layer_norm_backward_plain(x, gamma, dy),
-                       max(iters // 5, 3)),
-               cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
-                   dy, x, [c], mean, rstd, gamma.to(dtype), beta.to(dtype),
-                   [True, True, True]), iters),
-               bound_ms),
-           "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-    row["ok"] = all(errs[k] <= tol[k] for k in errs) and \
-        all(bool(torch.isfinite(g).all()) for g in got)
-    emit(row)
-    if not row["ok"]:
-        raise AssertionError("layer_norm_backward disagrees with its plain "
-                             "version at %s: %s" % (name, row))
-    return row
-
-
 def train_kernel_phase(seed):
     """The train step's kernel calls at the flagship shapes (B=16, T_in=192,
     T_out=448), then edges and fp32."""
@@ -695,6 +733,207 @@ def train_kernel_phase(seed):
                           False, [50, 31, 1, 50], 0, cross=True, iters=5)
     check_train_attention("train_encoder_fp32", rng, 16, 192, 192, 512, 8,
                           False, enc_len, 0, dtype=torch.float32, iters=5)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4a: the LayerNorm backward kernel
+# ---------------------------------------------------------------------------
+
+def layernorm_inputs(rng, n, c, dtype, misalign=False):
+    """x, gamma, beta, dy on the card; ``misalign``: x is a view 2 or 4
+    bytes past a 16-byte boundary (one element into its buffer)."""
+    x32 = torch.from_numpy((rng.randn(n, c) * 2 + 0.5).astype(np.float32))
+    if misalign:
+        x = torch.empty(n * c + 1, dtype=dtype, device="cuda")[1:].view(n, c)
+        x.copy_(x32)
+    else:
+        x = x32.to("cuda", dtype)
+    gamma = torch.from_numpy((1 + 0.1 * rng.randn(c)).astype(
+        np.float32)).cuda()
+    beta = torch.from_numpy((0.1 * rng.randn(c)).astype(np.float32)).cuda()
+    dy = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(
+        "cuda", dtype)
+    return x, gamma, beta, dy
+
+
+def check_layernorm(name, rng, n, c, launches_per_step,
+                    dtype=torch.bfloat16, iters=50, misalign=False,
+                    variant="vector"):
+    """layer_norm_backward against its plain version at x [n, c]: errors
+    against TOL_LN, a second call's bits, the launch plan (which must take
+    ``variant``), kernel / plain / aten ms warm, the kernel cold (L2
+    flushed), its kernels' split, the wrapper's host time."""
+    x, gamma, beta, dy = layernorm_inputs(rng, n, c, dtype, misalign)
+    got = layer_norm_backward(x, gamma, dy)
+    again = layer_norm_backward(x, gamma, dy)
+    want = layer_norm_backward_plain(x, gamma, dy)
+    torch.cuda.synchronize()
+    errs = {n_: rel_err(g, w) for n_, g, w in
+            zip(("dx", "dgamma", "dbeta"), got, want)}
+    aligned = x.data_ptr() % 16 == 0
+    plan = layernorm_ops._plan(x.device, n, c, dtype, aligned)
+    # the library call: aten's LayerNorm backward from its own forward's
+    # statistics (E[(x - mean)^2], so no error is compared)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(
+        x, [c], gamma.to(dtype), beta.to(dtype), 1e-6)
+    bound_ms, bound_by, nbytes, flops = layernorm_bound(n, c, dtype)
+    tol = TOL_LN[dtype]
+    kernel = lambda: layer_norm_backward(x, gamma, dy)
+    row = {"phase": "ln_kernel_check", "kernel": "layer_norm_backward",
+           "case": name, "dtype": str(dtype), "rows": n, "C": c,
+           "x_aligned_16": aligned,
+           "plan": {"variant": "vector" if plan.vector else "scalar",
+                    **plan._asdict()},
+           "launches_per_train_step": launches_per_step,
+           **{"rel_err_" + k: v for k, v in errs.items()},
+           "max_abs_err_dx": abs_err(got[0], want[0]),
+           "max_abs_dx": want[0].float().abs().max().item(),
+           **{"tol_" + k: v for k, v in tol.items()},
+           "repeat_bit_identical": all(torch.equal(a, b)
+                                       for a, b in zip(got, again)),
+           **timings(
+               cuda_ms(kernel, iters),
+               cuda_ms(lambda: layer_norm_backward_plain(x, gamma, dy),
+                       max(iters // 5, 3)),
+               cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                   dy, x, [c], mean, rstd, gamma.to(dtype), beta.to(dtype),
+                   [True, True, True]), iters),
+               bound_ms),
+           "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+    row["cold_ms"] = cold_ms(kernel, max(iters // 2, 3))
+    row["cold_bound_share"] = bound_ms / row["cold_ms"]
+    row["cold_dirty_ms"] = cold_ms(kernel, max(iters // 2, 3), dirty=True)
+    row["cold_kernel_ms"] = cold_kernel_ms(kernel, "ln_bwd")
+    row["cold_kernel_bound_share"] = bound_ms / row["cold_kernel_ms"]
+    if plan.grid > 1:
+        row["timeline_us"] = {"warm": ln_timeline_us(x, gamma, dy, plan),
+                              "cold": ln_timeline_us(x, gamma, dy, plan,
+                                                     l2_flusher())}
+    row["kernels_ms"] = kernel_split_ms(kernel)
+    row["host_us_per_call"] = host_us(kernel)
+    row["ok"] = all(errs[k] <= tol[k] for k in errs) and \
+        row["repeat_bit_identical"] and row["plan"]["variant"] == variant \
+        and all(bool(torch.isfinite(g).all()) for g in got)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("layer_norm_backward disagrees with its plain "
+                             "version at %s: %s" % (name, row))
+    return row
+
+
+def ln_timeline_us(x, gamma, dy, plan, flush=None, reps=20):
+    """Median over ``reps`` calls of the kernel's stages (its blocks'
+    global-timer stamps, ops/layernorm.py TRACE_STAMPS), as µs from the
+    first block's start to the last block's stamp; ``flush`` before each
+    call when given."""
+    names = layernorm_ops.TRACE_STAMPS
+    trace = torch.zeros(plan.grid * len(names), dtype=torch.int64,
+                        device="cuda")
+    stages = []
+    for _ in range(reps):
+        if flush:
+            flush()
+        layer_norm_backward(x, gamma, dy, trace=trace)
+        t = trace.view(plan.grid, len(names)).cpu().numpy()
+        stages.append(t.max(0)[1:] - t[:, 0].min())
+    return dict(zip(names[1:], (np.median(stages, 0) / 1e3).tolist()))
+
+
+def parent_ln(source):
+    """The parent commit's csrc/layernorm_bwd.cu (its C interface: two
+    kernels, the caller's [blocks, 2, C] workspace), built here, as a
+    function of layer_norm_backward's arguments that does what the parent's
+    wrapper did per call (its argument checks were this one's): for the A/B
+    of one call.  Returns (function, its ptxas lines)."""
+    import ctypes
+    out = os.path.join(ROOT, "build", "parent_ln", "liblayernorm_bwd.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    log = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                          "-o", out, source], check=True, capture_output=True,
+                         text=True, timeout=600)
+    ptxas = [l.strip() for l in (log.stdout + log.stderr).splitlines()
+             if "registers" in l or "spill" in l or "Compiling entry" in l]
+    lib = ctypes.CDLL(out)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ln_bwd.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i,
+                           ctypes.c_float, p]
+    lib.ln_bwd.restype = i
+
+    def fn(x, gamma, dy, eps=1e-6):
+        layernorm_ops.check_kernel_args(x, gamma, dy)
+        c = x.shape[-1]
+        x2 = x.reshape(-1, c).contiguous()
+        dy2 = dy.reshape(-1, c).contiguous()
+        rows = x2.shape[0]
+        dx = torch.empty_like(x2)
+        dgamma = torch.empty(c, dtype=torch.float32, device=x.device)
+        dbeta = torch.empty(c, dtype=torch.float32, device=x.device)
+        blocks = min(-(-rows // 8), 264)
+        rows_per_block = -(-rows // blocks)
+        blocks = -(-rows // rows_per_block)
+        partial = torch.empty((blocks, 2, c), dtype=torch.float32,
+                              device=x.device)
+        err = lib.ln_bwd(int(x.dtype == torch.bfloat16), x2.data_ptr(),
+                         gamma.contiguous().data_ptr(), dy2.data_ptr(),
+                         dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+                         partial.data_ptr(), rows, c, rows_per_block, blocks,
+                         float(eps),
+                         torch.cuda.current_stream(x.device).cuda_stream)
+        if err:
+            raise RuntimeError("the parent's ln_bwd failed: %d" % err)
+        return dx.reshape(x.shape), dgamma, dbeta
+    return fn, ptxas
+
+
+def parent_ln_ab(parent, rng, iters=50):
+    """The parent's LayerNorm backward and this one at the two train
+    shapes, bf16: warm and cold ms, in the order parent, change, change,
+    parent, each kernel's split and the wrappers' host time, with both
+    results' errors against the plain version."""
+    p_fn, ptxas = parent
+    rows = {}
+    for name, n, c in (("ln_encoder", 16 * 192, 512),
+                       ("ln_decoder", 16 * 448, 768)):
+        x, gamma, _, dy = layernorm_inputs(rng, n, c, torch.bfloat16)
+        want = layer_norm_backward_plain(x, gamma, dy)
+        fns = (lambda: p_fn(x, gamma, dy),
+               lambda: layer_norm_backward(x, gamma, dy))
+        row = {"phase": "ln_kernel_check", "case": "parent_ln_ab",
+               "shape": name, "rows": n, "C": c,
+               "order": "parent, change, change, parent"}
+        for what, timer in (
+                ("warm", lambda f: cuda_ms(f, iters)),
+                ("cold", lambda f: cold_ms(f, iters // 2)),
+                ("cold_dirty", lambda f: cold_ms(f, iters // 2, dirty=True)),
+                ("host_us", host_us)):
+            t = [timer(fns[i]) for i in (0, 1, 1, 0)]
+            row[what] = {"parent": [t[0], t[3]], "change": [t[1], t[2]],
+                         "speedup": min(t[0], t[3]) / max(t[1], t[2])}
+        row["kernels_ms"] = {"parent": kernel_split_ms(fns[0]),
+                             "change": kernel_split_ms(fns[1])}
+        row["rel_err_max"] = {
+            who: max(rel_err(g, w) for g, w in zip(fn(), want))
+            for who, fn in (("parent", fns[0]), ("change", fns[1]))}
+        row["parent_ptxas"] = ptxas
+        row["ok"] = row["warm"]["speedup"] >= 1 and \
+            row["cold"]["speedup"] >= 1
+        emit(row)
+        rows[name] = row
+        if not row["ok"]:
+            raise AssertionError("the change is slower than the parent's "
+                                 "layernorm_bwd.cu: %s" % row)
+    return rows
+
+
+def ln_kernel_phase(seed, parent=None):
+    """layer_norm_backward at the train step's two shapes (13 and 19 calls
+    per step), then edges: rows not a multiple of the blocks' rows, fewer
+    rows than blocks, a ragged row (C=44 bf16: the scalar variant), a
+    misaligned x, fp32 at C=768 and 1024.  With ``parent`` (parent_ln of a
+    parent commit's csrc/layernorm_bwd.cu), the A/B of one call."""
+    rng = np.random.RandomState(seed + 11)
+    rows = {}
     rows["ln_encoder"] = check_layernorm("ln_encoder", rng, 16 * 192, 512,
                                          13)
     rows["ln_decoder"] = check_layernorm("ln_decoder", rng, 16 * 448, 768,
@@ -702,7 +941,45 @@ def train_kernel_phase(seed):
     check_layernorm("ln_rows7_c48", rng, 7, 48, 0, iters=5)
     check_layernorm("ln_decoder_fp32", rng, 16 * 448, 768, 0,
                     dtype=torch.float32, iters=10)
+    check_layernorm("ln_rows7169_c768", rng, 16 * 448 + 1, 768, 0, iters=5)
+    check_layernorm("ln_rows3_c768", rng, 3, 768, 0, iters=5)
+    check_layernorm("ln_c44_scalar", rng, 333, 44, 0, iters=5,
+                    variant="scalar")
+    check_layernorm("ln_misaligned_x", rng, 1001, 768, 0, iters=5,
+                    misalign=True, variant="scalar")
+    check_layernorm("ln_c1024_fp32", rng, 2049, 1024, 0,
+                    dtype=torch.float32, iters=5)
+    rows["forward_launches"] = ln_forward_launches(rng)
+    if parent:
+        rows["parent_ab"] = parent_ln_ab(parent, rng)
     return rows
+
+
+def ln_forward_launches(rng, calls=5, per_step=32):
+    """Device kernels of one plain LayerNorm forward as a train step runs
+    it (LayerNormFunction at the encoder shape, bf16, autograd on), by
+    torch.profiler; ``per_step`` forwards per flagship step (one per
+    layer_norm_backward call)."""
+    from torch.profiler import ProfilerActivity, profile
+    x, gamma, beta, _ = layernorm_inputs(rng, 16 * 192, 512, torch.bfloat16)
+    x.requires_grad_()
+    fn = lambda: layernorm_ops.LayerNormFunction.apply(x, gamma, beta, 1e-6)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)[0]
+    per_call = sum(e.count for e in kernels) / calls
+    row = {"phase": "ln_kernel_check", "case": "ln_forward_launches",
+           "rows": 16 * 192, "C": 512, "kernels_per_call": per_call,
+           "per_step": per_call * per_step,
+           "device_ms_per_call": sum(e.self_device_time_total
+                                     for e in kernels) / 1e3 / calls,
+           "kernels": sorted({kernel_name(e.key) for e in kernels})}
+    emit(row)
+    return row
 
 
 # the wide train shapes: the flagship widths with 2 heads (D=384) and 1
@@ -1830,10 +2107,17 @@ def train_profile(model, optimizer, scheduler, batch, hp, seed, step,
     # the attention kernels of csrc/mha_fwd.cu and csrc/mha_bwd.cu
     attention_ms = sum(e.self_device_time_total for e in kernels
                        if "mha_fwd" in e.key or "mha_bwd" in e.key) / 1e3
+    # csrc/layernorm_bwd.cu's kernel (each kernel of a parent's too)
+    ln = [e for e in kernels if "ln_bwd" in e.key]
+    ln_ms = sum(e.self_device_time_total for e in ln) / 1e3
     return {"phase": phase, "wall_ms_unprofiled": wall_ms,
             "device_busy_ms": busy_ms if kernels else None,
             "attention_device_ms": attention_ms,
             "attention_share_of_busy": attention_ms / busy_ms if busy_ms
+            else None,
+            "layernorm_bwd_device_ms": ln_ms,
+            "layernorm_bwd_launches": sum(e.count for e in ln),
+            "layernorm_bwd_share_of_busy": ln_ms / busy_ms if busy_ms
             else None,
             "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,
             "kernel_launches": sum(e.count for e in kernels),
@@ -1846,10 +2130,12 @@ def train_profile(model, optimizer, scheduler, batch, hp, seed, step,
                                 key=lambda e: -e.self_cpu_time_total)[:8]]}
 
 
-def train_phase(seed, steps=10):
+def train_phase(seed, steps=10, parent_ln_fn=None):
     """The training path: kernel/plain agreement at dropout 0 (bf16, fp32),
     then ``steps`` Adam steps at the default dropout rates through
-    train_step, counted, timed and profiled."""
+    train_step, counted, timed and profiled; with ``parent_ln_fn`` (from
+    parent_ln), one more profiled step with the parent's LayerNorm backward
+    in place of this one (its device ms and the step's launches)."""
     hp = default_config()
     host = train_batch(hp, seed)
     batch = device_batch(host, hp, "cuda")
@@ -1900,6 +2186,15 @@ def train_phase(seed, steps=10):
         raise AssertionError("train phase failed: %s" % row)
     emit(train_profile(model, optimizer, scheduler, batch, hp, seed, steps,
                        sec * 1e3))
+    if parent_ln_fn:
+        mine = layernorm_ops.layer_norm_backward
+        layernorm_ops.layer_norm_backward = parent_ln_fn
+        try:
+            emit(train_profile(model, optimizer, scheduler, batch, hp, seed,
+                               steps + 1, sec * 1e3,
+                               phase="train_profile_parent_ln"))
+        finally:
+            layernorm_ops.layer_norm_backward = mine
     return counts, sec, state
 
 
@@ -2395,7 +2690,8 @@ def kernel_line(name, row, err, launches, by_path, **extra):
             "library_ms": row["library_ms"], **extra}
 
 
-PHASES = ("kernel_check", "train_kernel_check", "head_dim_check",
+PHASES = ("kernel_check", "train_kernel_check", "ln_kernel_check",
+          "head_dim_check",
           "decode_kernel_check",
           "dsp_kernel_check", "adam_kernel_check", "main_path",
           "main_path_fused", "vocode", "cli", "train", "train_fused_adam",
@@ -2419,6 +2715,11 @@ def main():
                         help="a parent commit's csrc/mha_wide.cu: "
                              "head_dim_check then times it against this "
                              "one at the wide train shapes in one call "
+                             "(A/B)")
+    parser.add_argument("--parent-ln", default=None,
+                        help="a parent commit's csrc/layernorm_bwd.cu: "
+                             "ln_kernel_check then times it against this "
+                             "one at the two train shapes in one call "
                              "(A/B)")
     args = parser.parse_args()
     phases = PHASES if args.phases == "all" else args.phases.split(",")
@@ -2462,6 +2763,9 @@ def main():
         out["kernel_check"] = kernel_phase(args.seed)
     if "train_kernel_check" in phases:
         out["train_kernel_check"] = train_kernel_phase(args.seed)
+    parent = parent_ln(args.parent_ln) if args.parent_ln else None
+    if "ln_kernel_check" in phases:
+        out["ln"] = ln_kernel_phase(args.seed, parent)
     if "head_dim_check" in phases:
         head_dim_phase(args.seed, args.parent_wide)
     if "dsp_kernel_check" in phases:
@@ -2493,7 +2797,8 @@ def main():
         del model
     train_sec = state = None
     if "train" in phases:
-        out["train"], train_sec, state = train_phase(args.seed)
+        out["train"], train_sec, state = train_phase(
+            args.seed, parent_ln_fn=parent[0] if parent else None)
     if "train_fused_adam" in phases:
         out["train_fused_adam"] = train_fused_adam_phase(args.seed, state,
                                                          train_sec)
@@ -2520,8 +2825,8 @@ def main():
                     max(dec["backward_0.1"]["max_abs_err_" + g]
                         for g in ("dq", "dk", "dv")),
                     train["mha_backward"], paths("mha_backward")),
-        kernel_line("layer_norm_backward", rows["ln_decoder"],
-                    rows["ln_decoder"]["max_abs_err_dx"],
+        kernel_line("layer_norm_backward", out["ln"]["ln_decoder"],
+                    out["ln"]["ln_decoder"]["max_abs_err_dx"],
                     train["layer_norm_backward"],
                     paths("layer_norm_backward")),
         # the fused decode's main path is synthesis; a frame at step 256

@@ -12,7 +12,8 @@ kernels in interpret mode, and the autograd Functions that carry them.
   draws within 0.005 of 0.9, equal across calls, different across seeds,
   heads and batch rows.
 - ``layer_norm_backward_plain`` against ``jax.vjp`` of ``fused_layer_norm``
-  in interpret mode (rows 1000 and 7, C 32 and 48).  Tolerance 1e-5.
+  in interpret mode (rows 1000 and 7, C 32 and 48; the flagship widths 512
+  and 768 at 64 and 33 rows).  Tolerance 1e-5.
 """
 
 import jax
@@ -160,7 +161,7 @@ def test_dropout_mask_share_and_determinism():
 
 
 @pytest.mark.parametrize("rows,c", [(1000, 32), (1000, 48), (7, 32),
-                                    (7, 48)])
+                                    (7, 48), (64, 512), (33, 768)])
 def test_layer_norm_backward_plain_matches_pallas_vjp(rows, c):
     rng = np.random.RandomState(rows + c)
     x = (rng.randn(rows, c) * 2 + 0.5).astype(np.float32)
