@@ -108,6 +108,19 @@ uncaught exception and a non-zero exit):
      few_shot_transformer_tts_torch.synthesize`` (in-process, 64 frames),
      once as it is and once with ``--hparams use_pallas_decode=True``
      (the fused step must launch); the .npy and .wav files must exist.
+  8a. eval_service: the eval service CLI (``python -m
+     few_shot_transformer_tts_torch.eval``, in-process) at the flagship
+     width over one model dir holding the same random weights as a torch
+     file (step 10000), a JAX msgpack file (20000) and a two-rank sharded
+     .d dir (30000), on 16 synthetic utterances over 2 languages (2
+     batches of 8 a checkpoint, 256-frame cap, decoder dropout on;
+     --gpu_vocoder at step 10000): each format loads the source's state
+     dict bit for bit; .npy, .wav and _trim.wav for every sample; a finite
+     mse_dtw per language and step; 6 mha_forward launches per
+     synthesize_batch; a spawn saver pool; seconds per checkpoint (load,
+     generation, vocoder, DTW, the wait for the pool) beside the card's
+     name and power limit, and the seconds to pickle one B=8, 512-frame
+     batch's results for the pool.
   9. train: the flagship config, bf16, weights from --seed, one synthetic
      batch at B=16, T_in=192, T_out=448.  One step at dropout 0 through the
      kernels against the same step through the plain attention and
@@ -156,6 +169,7 @@ Then a {"kernels": [...]} line (six kernels), and last {"ok": true,
 import argparse
 import contextlib
 import copy
+import functools
 import json
 import os
 import re
@@ -193,6 +207,11 @@ from few_shot_transformer_tts_torch.ops.mel import (
 from few_shot_transformer_tts_torch.ops.mha import (
     KERNEL_HEAD_DIMS, MAX_HEAD_DIM, dropout_keep_mask, kernel_head_dim,
     mha_backward, mha_backward_plain, mha_forward, mha_forward_plain)
+from few_shot_transformer_tts_torch.train import flax_msgpack
+from few_shot_transformer_tts_torch.train.checkpoint import (
+    checkpoint_format, load_state, save_state)
+from few_shot_transformer_tts_torch.train.converter import \
+    jax_variables_from_state_dict
 from few_shot_transformer_tts_torch.train.loop import (
     device_batch, make_optimizer, step_generator, train_step)
 from few_shot_transformer_tts_torch.utils.device import resolve_device
@@ -1932,6 +1951,226 @@ def cli_phase(model, out_dir):
 
 
 # ---------------------------------------------------------------------------
+# phase 8a: the eval service over the three checkpoint formats
+# ---------------------------------------------------------------------------
+
+EVAL_HPARAMS = "max_generation_frames=256,max_eval_batches=2," \
+    "batch_frame_limit=1600"     # 8 utterances of 200 frames a batch
+EVAL_LANGS = ("en-us", "de-de")
+
+
+def write_eval_corpus(root, seed, num_mels=80, per_lang=8, frames=200):
+    """mels.zip, metadata.eval.txt and the id maps: 2 languages x 8
+    utterances of ``frames`` mel frames and 60-180 bytes of text."""
+    import io
+    import zipfile
+    rng = np.random.RandomState(seed + 7)
+    rows, names = [], []
+    words = ["alpha", "bravo", "delta", "echo", "golf", "hotel", "lima",
+             "oscar", "tango", "victor"]
+    with zipfile.ZipFile(os.path.join(root, "mels.zip"), "w") as zf:
+        for lang in EVAL_LANGS:
+            for i in range(per_lang):
+                name = "%s0_%010d" % (lang[:2], i)
+                text = ""
+                target = int(rng.randint(60, 181))
+                while len(text) < target:
+                    text += words[rng.randint(len(words))] + " "
+                buf = io.BytesIO()
+                np.save(buf, np.clip(rng.randn(frames, num_mels), -4,
+                                     4).astype(np.float32))
+                zf.writestr(name + ".npy", buf.getvalue())
+                rows.append("%s.npy|%d|%s|%s" % (name, frames,
+                                                 text[:target].strip(), lang))
+                names.append(name)
+    with open(os.path.join(root, "metadata.eval.txt"), "w") as f:
+        f.write("\n".join(rows))
+    with open(os.path.join(root, "lang_id.json"), "w") as f:
+        json.dump({lang: i for i, lang in enumerate(EVAL_LANGS)}, f)
+    with open(os.path.join(root, "spk_id.json"), "w") as f:
+        json.dump({lang[:2] + "0": i for i, lang in enumerate(EVAL_LANGS)},
+                  f)
+    return names
+
+
+def jax_train_state(model, step):
+    """The model as the JAX package's train state, in its checkpoints'
+    layout: {step, params, opt_state: ({count, mu, nu}, {count}),
+    batch_stats}, with zero Adam moments."""
+    variables = jax_variables_from_state_dict(model.state_dict())
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else np.zeros_like(v)
+                for k, v in tree.items()}
+    count = np.asarray(step, np.int32)
+    return {"step": count, "params": variables["params"],
+            "opt_state": {"0": {"count": count,
+                                "mu": zeros(variables["params"]),
+                                "nu": zeros(variables["params"])},
+                          "1": {"count": count}},
+            "batch_stats": variables["batch_stats"]}
+
+
+def write_sharded(tree, ckpt_dir, step, world=2):
+    """``tree`` in the JAX package's sharded layout
+    (``shard-<rank>-of-<world>.pkl``, leaves keyed by their '/' path, each
+    with its slice indices): leaves alternate between the ranks and the
+    largest is split by rows across them."""
+    import pickle
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + "/")
+            else:
+                flat[prefix + k] = np.asarray(v)
+    walk(tree, "")
+    keys = sorted(flat)
+    big = max(keys, key=lambda k: flat[k].size)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    for rank in range(world):
+        leaves = {}
+        for key in keys[rank::world]:
+            arr = flat[key]
+            leaves[key] = {"shape": arr.shape, "dtype": str(arr.dtype),
+                           "shards": [(tuple(slice(None) for _ in
+                                             arr.shape), arr)]}
+        arr = flat[big]
+        rows = np.array_split(np.arange(arr.shape[0]), world)[rank]
+        index = (slice(int(rows[0]), int(rows[-1]) + 1),) + \
+            tuple(slice(None) for _ in arr.shape[1:])
+        leaves[big] = {"shape": arr.shape, "dtype": str(arr.dtype),
+                       "shards": [(index, arr[index])]}
+        with open(os.path.join(ckpt_dir, "shard-%d-of-%d.pkl"
+                               % (rank, world)), "wb") as f:
+            pickle.dump({"rank": rank, "world": world, "step": step,
+                         "leaves": leaves}, f, protocol=4)
+
+
+def eval_service_phase(model, hp, batch, out_dir, seed, smi):
+    """The eval service CLI (``python -m few_shot_transformer_tts_torch.eval``,
+    in-process) at the flagship width over one model dir holding the same
+    random weights three times: a torch file at step 10000, a JAX msgpack
+    file at 20000 and a two-rank sharded .d dir at 30000, on a synthetic
+    corpus of 16 utterances over 2 languages.  Each format must load the
+    source's state dict bit for bit; every sample gets .npy, .wav and
+    _trim.wav; metrics.jsonl a finite mse_dtw per language and step; 6
+    mha_forward launches per synthesize_batch; a spawn saver pool.  Step
+    10000 runs with --gpu_vocoder."""
+    import shutil
+    from multiprocessing.reduction import ForkingPickler
+    from few_shot_transformer_tts_torch import eval as eval_cli
+    from few_shot_transformer_tts_torch.infer import save_eval_results
+    tic_phase = time.perf_counter()
+    root = os.path.join(out_dir, "eval_service")
+    shutil.rmtree(root, ignore_errors=True)
+    models = os.path.join(root, "models")
+    os.makedirs(models)
+    names = write_eval_corpus(root, seed, hp.num_mels)
+
+    source = {k: v.detach().cpu().clone() for k, v in
+              model.state_dict().items()}
+    write_s = {}
+    tic = time.perf_counter()
+    optimizer, scheduler = make_optimizer(model, hp)
+    save_state(models, model, optimizer, scheduler, 10000)
+    write_s["torch"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    with open(os.path.join(models, "model.ckpt-20000"), "wb") as f:
+        f.write(flax_msgpack.dumps(jax_train_state(model, 20000)))
+    write_s["msgpack"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    write_sharded(jax_train_state(model, 30000),
+                  os.path.join(models, "model.ckpt-30000.d"), 30000)
+    write_s["sharded"] = time.perf_counter() - tic
+    identical = {}
+    for step, name in ((10000, "model.ckpt-10000"),
+                       (20000, "model.ckpt-20000"),
+                       (30000, "model.ckpt-30000.d")):
+        fresh = ByteToMel(hp, device="cuda")
+        path = os.path.join(models, name)
+        loaded_step = load_state(path, fresh)
+        got = fresh.state_dict()
+        identical[checkpoint_format(path)] = loaded_step == step and \
+            sorted(got) == sorted(source) and \
+            all(torch.equal(got[k].cpu(), source[k]) for k in source)
+        del fresh
+
+    # what one batch's results cost to pickle for the pool: B=8, T_in=192,
+    # 512 frames, encdec alignments of every layer and head
+    out = synthesize_batch(model, batch, hp, deterministic=False,
+                           max_frames=512)
+    out["mel_pre"] = None
+    out["alignments"]["self"] = None
+    job = functools.partial(save_eval_results, **out, output_dir=root, hp=hp,
+                            save_trimmed_wave=True)
+    tic = time.perf_counter()
+    payload = ForkingPickler.dumps(job)
+    pickle_s = time.perf_counter() - tic
+    align_bytes = sum(a.nbytes for a in out["alignments"]["encdec"])
+    del out, job
+
+    logs = os.path.join(root, "logs")
+    argv = ["--model-dir", models, "--log-dir", logs, "--data-dir", root,
+            "--no_wait", "--start_step", "0", "--eval_interval", "10000",
+            "--hparams", EVAL_HPARAMS]
+    log = open(os.path.join(root, "eval_cli.log"), "w")
+    reset_counts()
+    with contextlib.redirect_stdout(log):
+        records = eval_cli.main(argv + ["--eval_steps", "10000",
+                                        "--gpu_vocoder"])
+        records += eval_cli.main(argv + ["--eval_steps", "20000:30000"])
+    counts = read_counts()
+    log.close()
+    calls = sum(r["batches"] for r in records)
+
+    with open(os.path.join(logs, "metrics.jsonl")) as f:
+        scalars = [json.loads(line) for line in f]
+    mse = {str(r["step"]): {m["tag"].split("/", 1)[1]: m["value"]
+                            for m in scalars if m["step"] == r["step"] and
+                            m["tag"].startswith("mse_dtw/")}
+           for r in records}
+    missing = {}
+    for r in records:
+        files = set(os.listdir(os.path.join(logs, "eval_%d" % r["step"])))
+        lost = [n + ext for n in names for ext in (".npy", ".wav",
+                                                   "_trim.wav")
+                if n + ext not in files]
+        if lost:
+            missing[r["step"]] = lost
+    shutil.rmtree(models)
+    row = {"phase": "eval_service", "nvidia_smi": smi,
+           "hparams": EVAL_HPARAMS, "utterances": len(names),
+           "checkpoints": records, "write_s": write_s,
+           "formats_bit_identical": identical,
+           "synthesize_batch_calls": calls,
+           "launches_by_kernel": counts,
+           "mha_forward_per_call": counts["mha_forward"] / max(calls, 1),
+           "mse_dtw": mse, "missing_files": missing,
+           "pickle_one_batch_s": pickle_s,
+           "pickle_one_batch_bytes": len(payload),
+           "encdec_alignment_bytes": align_bytes,
+           "wall_s": time.perf_counter() - tic_phase}
+    row["ok"] = identical == {"torch": True, "msgpack": True,
+                              "sharded": True} and \
+        [r["step"] for r in records] == [10000, 20000, 30000] and \
+        [r["format"] for r in records] == ["torch", "msgpack", "sharded"] and \
+        all(r["pool"] == "spawn" and r["samples"] == len(names)
+            for r in records) and \
+        records[0]["vocoder_s"] > 0 and calls == 2 * len(records) and \
+        counts == dict(NO_LAUNCHES,
+                       mha_forward=hp.n_encoder_layer * calls) and \
+        not missing and all(
+            sorted(v) == sorted(EVAL_LANGS) and
+            all(np.isfinite(x) for x in v.values()) for v in mse.values())
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("eval_service phase failed: %s" % row)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the train step at flagship width
 # ---------------------------------------------------------------------------
 
@@ -2694,8 +2933,8 @@ PHASES = ("kernel_check", "train_kernel_check", "ln_kernel_check",
           "head_dim_check",
           "decode_kernel_check",
           "dsp_kernel_check", "adam_kernel_check", "main_path",
-          "main_path_fused", "vocode", "cli", "train", "train_fused_adam",
-          "train_cli")
+          "main_path_fused", "vocode", "cli", "eval_service", "train",
+          "train_fused_adam", "train_cli")
 
 
 def main():
@@ -2773,7 +3012,7 @@ def main():
     if "adam_kernel_check" in phases:
         out["adam"] = adam_kernel_phase(args.seed)
     if {"decode_kernel_check", "main_path", "main_path_fused", "vocode",
-            "cli"} & set(phases):
+            "cli", "eval_service"} & set(phases):
         hp = default_config()
         model = flagship_model(hp, args.seed, "cuda")
         batch = flagship_batch(hp, args.seed)
@@ -2794,6 +3033,9 @@ def main():
                          synthesis["generated_lengths"], hp)
         if "cli" in phases:
             cli_phase(model, args.out_dir)
+        if "eval_service" in phases:
+            out["eval"] = eval_service_phase(model, hp, batch, args.out_dir,
+                                             args.seed, smi)
         del model
     train_sec = state = None
     if "train" in phases:
@@ -2813,6 +3055,7 @@ def main():
     paths = lambda name: {
         "synthesize_batch": out["eager"][name],
         "synthesize_batch_fused": out["fused"][name],
+        "eval_service": out["eval"][name],
         "train_10_steps": train[name],
         "train_10_steps_fused_adam": out["train_fused_adam"][name],
         "melspectrogram_batch": out["dsp"]["counts"][name]}

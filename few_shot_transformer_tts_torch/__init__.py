@@ -14,12 +14,14 @@ names mirror the JAX package module for module:
   ops/             attention forward/backward (csrc/mha_fwd.cu,
                    csrc/mha_bwd.cu), LayerNorm with its backward kernel
                    (csrc/layernorm_bwd.cu), numpy DSP for Griffin-Lim output
-  infer/           AR synthesis with KV caches
-  train/           train step and loop, checkpoints, weight bridge (JAX
+  infer/           AR synthesis with KV caches, the eval service
+  train/           train step and loop, checkpoints (the JAX package's
+                   msgpack and sharded ones read too), weight bridge (JAX
                    variables / reference checkpoints), the training CLI
                    ``python -m few_shot_transformer_tts_torch.train``
-  utils/           logging, plots, metric windows
+  utils/           logging, plots, metric windows, DTW-MSE and CER
   synthesize.py    CLI: ``python -m few_shot_transformer_tts_torch.synthesize``
+  eval.py          CLI: ``python -m few_shot_transformer_tts_torch.eval``
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -288,10 +288,15 @@ def vocode_batch(mel_aft, generated_lengths, hp: Config, device="cuda"):
 
 def save_eval_results(names, mel_pre, mel_aft, alignments, input_lengths,
                       generated_lengths, output_dir, hp: Config,
-                      save_trimmed_wave: bool = False):
+                      save_trimmed_wave: bool = False,
+                      n_plot_alignment: Optional[int] = None,
+                      wavs=None):
     """Save per-sample mel ``.npy``, Griffin-Lim ``.wav`` (CPU, numpy),
     optionally ``_trim.wav``, and plots (reference synthesize.py:75-106);
-    4-thread pool as in the reference."""
+    4-thread pool as in the reference.  ``wavs`` (from ``vocode_batch``)
+    replaces the per-sample numpy Griffin-Lim; alignments are plotted for
+    the first ``n_plot_alignment`` samples (all when None).  Takes numpy
+    only, so a process pool can run it."""
     from ..ops import dsp
     from ..utils import infolog
 
@@ -300,7 +305,7 @@ def save_eval_results(names, mel_pre, mel_aft, alignments, input_lengths,
             name = names[i]
             mel = mel_aft[i][:generated_lengths[i]]
             np.save(os.path.join(output_dir, "%s.npy" % name), mel)
-            wav = dsp.mel2wav(mel, hp)
+            wav = wavs[i] if wavs is not None else dsp.mel2wav(mel, hp)
             if len(wav) == 0:
                 wav = np.zeros(hp.hop_length, np.float32)
             dsp.save_wav(wav, os.path.join(output_dir, "%s.wav" % name), hp.sr)
@@ -309,7 +314,8 @@ def save_eval_results(names, mel_pre, mel_aft, alignments, input_lengths,
                              os.path.join(output_dir, "%s_trim.wav" % name),
                              hp.sr)
             infolog.plot_mel(os.path.join(output_dir, "%s_mel.png" % name), mel)
-            if alignments.get("encdec") is not None:
+            if (n_plot_alignment is None or i < n_plot_alignment) and \
+                    alignments.get("encdec") is not None:
                 aligns = [a[i].transpose([0, 2, 1])
                           for a in alignments["encdec"]]
                 infolog.plot_attn(

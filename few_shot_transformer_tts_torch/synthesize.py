@@ -1,5 +1,4 @@
-"""Synthesis CLI of the port: reference-format checkpoint + script -> wavs
-and mels.
+"""Synthesis CLI of the port: checkpoint + script -> wavs and mels.
 
     python -m few_shot_transformer_tts_torch.synthesize \
         --checkpoint model.ckpt-<step> --script script.txt \
@@ -9,9 +8,10 @@ and mels.
 Script lines are ``SPEAKERNAME_FILEID|DUMMY_LENGTH|TEXT|LANG``.  Flags as in
 the JAX package's root ``synthesize.py`` plus ``--device`` (default cuda; a
 missing card raises rather than falling back).  The checkpoint is a
-``torch.save({model, optim, sched, step})`` file; the JAX package's msgpack
-checkpoints are not read.  Fp32 matmuls and convolutions run without TF32.
-``--hparams use_pallas_decode=True --deterministic`` decodes each frame with
+``torch.save({model, optim, sched, step})`` file, a JAX package msgpack
+``model.ckpt-<step>`` or a sharded ``model.ckpt-<step>.d`` directory
+(``train/checkpoint.py:load_state``).  Fp32 matmuls and convolutions run
+without TF32.  ``--hparams use_pallas_decode=True --deterministic`` decodes each frame with
 the fused decode kernel (``ops/decode.py``), one launch per frame through
 every decoder layer.
 """
@@ -25,7 +25,8 @@ import os
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--checkpoint', required=True,
-                        help='model.ckpt-<step> file (reference torch format)')
+                        help='model.ckpt-<step>: a torch file, a JAX '
+                             'msgpack file or a sharded .d directory')
     parser.add_argument('--script', required=True,
                         help='metadata file: name|dummy_len|text|lang per line')
     parser.add_argument('--data-dir', required=True,
@@ -43,8 +44,7 @@ def main(argv=None):
     from few_shot_transformer_tts_torch.infer import (synthesize_batch,
                                                       save_eval_results)
     from few_shot_transformer_tts_torch.models import ByteToMel
-    from few_shot_transformer_tts_torch.train.converter import \
-        load_reference_checkpoint
+    from few_shot_transformer_tts_torch.train import checkpoint as ckpt_lib
     from few_shot_transformer_tts_torch.utils import infolog
 
     infolog.set_logger()
@@ -54,15 +54,13 @@ def main(argv=None):
     with open(os.path.join(args.data_dir, 'spk_id.json')) as f:
         spk_to_id = json.load(f)
 
-    if not _is_torch_checkpoint(args.checkpoint):
-        raise ValueError('%s is not a torch.save checkpoint; the port reads '
-                         'reference-format checkpoints only' % args.checkpoint)
+    fmt = ckpt_lib.checkpoint_format(args.checkpoint)
     feeder = FeederEval(None, args.script, hp, spk_to_id=spk_to_id,
                         lang_to_id=lang_to_id, shuffle=False, keep_order=True)
     model = ByteToMel(hp, device=args.device)
-    step = load_reference_checkpoint(args.checkpoint, model)
+    step = ckpt_lib.load_state(args.checkpoint, model)
     model.eval()
-    logging.info('Loaded reference torch checkpoint at step %s on %s', step,
+    logging.info('Loaded %s checkpoint at step %d on %s', fmt, step,
                  model.device)
 
     os.makedirs(args.output_dir, exist_ok=True)
@@ -71,12 +69,6 @@ def main(argv=None):
                                    deterministic=args.deterministic)
         save_eval_results(**results, output_dir=args.output_dir, hp=hp,
                           save_trimmed_wave=True)
-
-
-def _is_torch_checkpoint(path):
-    with open(path, 'rb') as f:
-        magic = f.read(2)
-    return magic in (b'PK', b'\x80\x02')  # torch zip / legacy pickle
 
 
 if __name__ == '__main__':

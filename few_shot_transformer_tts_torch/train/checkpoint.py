@@ -1,15 +1,21 @@
 """Checkpoints of the port: ``model.ckpt-<step>`` files in the reference torch
-format, and feeder state.
+format, the JAX package's msgpack and sharded checkpoints read back, and
+feeder state.
 
 Counterpart of ``few_shot_transformer_tts_tpu/train/checkpoint.py``
 (reference utils/checkpoint.py:8-58).  ``save_state`` writes
 ``torch.save({model, optim, sched, step})`` through an atomic rename: the
 format the reference writes and the JAX package's
 ``load_reference_checkpoint`` imports, Adam moments included.  ``find_ckpt``
-picks the largest step.  Feeder (data-iterator) state is saved per rank as
-``feeder_<rank>.pkl`` beside every checkpoint, so every checkpoint is a
-consistent resume point.  The JAX package's msgpack, sharded and
-asynchronous checkpoints are not ported.
+picks the largest step.  ``load_state`` reads three formats
+(``checkpoint_format``): that torch format, the JAX package's flax msgpack
+``model.ckpt-<step>`` (``train/flax_msgpack.py``) and its sharded
+``model.ckpt-<step>.d/shard-<rank>-of-<world>.pkl`` directories
+(``load_state_sharded``), whose train state goes through
+``converter.from_jax_train_state``.  Feeder (data-iterator) state is saved
+per rank as ``feeder_<rank>.pkl`` beside every checkpoint, so every
+checkpoint is a consistent resume point.  Writing the sharded format and
+the JAX package's asynchronous checkpointer are not ported.
 """
 
 from __future__ import annotations
@@ -20,9 +26,12 @@ import os
 import pickle
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .converter import load_reference_checkpoint
+from . import flax_msgpack
+from .converter import (from_jax_train_state, load_reference_checkpoint,
+                        unflatten_dict)
 
 
 def find_ckpt(base_dir: str) -> Optional[str]:
@@ -55,14 +64,94 @@ def save_state(model_dir: str, model, optimizer, scheduler, step: int) -> str:
     return path
 
 
+def checkpoint_format(path: str) -> str:
+    """'torch' (a torch.save zip or legacy pickle), 'msgpack' (flax
+    ``to_bytes`` of a train state: a msgpack map) or 'sharded' (a ``.d``
+    directory of shard files); anything else raises ValueError."""
+    if os.path.isdir(path):
+        return "sharded"
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    if magic in (b"PK", b"\x80\x02"):        # torch zip / legacy pickle
+        return "torch"
+    if magic and (0x80 <= magic[0] <= 0x8f or magic[0] in (0xde, 0xdf)):
+        return "msgpack"
+    raise ValueError("%s is in no checkpoint format the port reads: a torch "
+                     "file, a flax msgpack file or a sharded .d directory"
+                     % path)
+
+
 def load_state(path: str, model, optimizer=None, scheduler=None) -> int:
-    """Restore model, optimizer and scheduler from ``path``; the step."""
-    step = load_reference_checkpoint(path, model, optimizer, scheduler)
-    expected = path.split("-")[-1]
-    if step is not None and expected.isdigit() and int(expected) != step:
+    """Restore model (strictly), and optimizer and scheduler when given,
+    from a checkpoint in any ``checkpoint_format``; the step.  From the JAX
+    formats the scheduler resumes at the stored step."""
+    fmt = checkpoint_format(path)
+    if fmt == "torch":
+        step = load_reference_checkpoint(path, model, optimizer, scheduler)
+    else:
+        tree = load_state_sharded(path) if fmt == "sharded" \
+            else flax_msgpack.load(path)
+        state_dict, optim, step = from_jax_train_state(tree, model, optimizer)
+        model.load_state_dict(state_dict, strict=True)
+        if optimizer is not None:
+            optimizer.load_state_dict(optim)
+        if scheduler is not None:
+            _resume_schedule(scheduler, step)
+    name_step = os.path.basename(path).split("-")[-1]
+    if name_step.endswith(".d"):
+        name_step = name_step[:-2]
+    if step is not None and name_step.isdigit() and int(name_step) != step:
         logging.warning("Step=%d, while checkpoint name says %s", step,
-                        expected)
+                        name_step)
     return int(step or 0)
+
+
+def _resume_schedule(scheduler, step: int) -> None:
+    """Put a LambdaLR where it stands after ``step`` steps, as a saved
+    scheduler state would: ``last_epoch`` and each group's LR."""
+    scheduler.last_epoch = step
+    lrs = [base * fn(step) for fn, base in zip(scheduler.lr_lambdas,
+                                               scheduler.base_lrs)]
+    for group, lr in zip(scheduler.optimizer.param_groups, lrs):
+        group["lr"] = lr
+    scheduler._last_lr = lrs
+
+
+def load_state_sharded(ckpt_dir: str) -> dict:
+    """The train-state tree of a ``model.ckpt-<step>.d`` directory, as the
+    JAX package's ``load_state_sharded`` reassembles it: each leaf filled
+    from the slice indices its shard records carry.  Raises ValueError when
+    a shard file is missing, the files disagree on the world size, or a
+    leaf is not fully covered; warns when the stored step is not the
+    directory's."""
+    files = sorted(glob.glob(os.path.join(ckpt_dir, "shard-*.pkl")))
+    if not files:
+        raise ValueError("no shard files under %s" % ckpt_dir)
+    leaves, filled = {}, {}
+    step = None
+    for fp in files:
+        with open(fp, "rb") as f:
+            payload = pickle.load(f)
+        step = payload["step"]
+        if payload["world"] != len(files):
+            raise ValueError("expected %d shard files, found %d in %s"
+                             % (payload["world"], len(files), ckpt_dir))
+        for key, rec in payload["leaves"].items():
+            if key not in leaves:
+                leaves[key] = np.zeros(rec["shape"], dtype=rec["dtype"])
+                filled[key] = 0
+            for index, data in rec["shards"]:
+                leaves[key][tuple(index)] = data
+                filled[key] += int(np.asarray(data).size)
+    for key, arr in leaves.items():
+        if filled[key] != arr.size:
+            raise ValueError("shard coverage mismatch for %s: %d of %d "
+                             "elements" % (key, filled[key], arr.size))
+    tree = unflatten_dict({tuple(k.split("/")): v for k, v in leaves.items()})
+    if step is not None and int(tree["step"]) != int(step):
+        logging.warning("Step=%d, while checkpoint dir says %d",
+                        int(tree["step"]), int(step))
+    return tree
 
 
 def save_feeder_state(logdir: str, rank: int, feeder) -> str:

@@ -8,8 +8,10 @@ plus ``--device`` (default cuda; a missing card raises rather than falling
 back), without ``--multihost``, ``--mirror_interval`` and ``--profile_*``.
 The data dir holds ``mels.zip``, ``metadata.train.txt``,
 ``metadata.eval.txt``, ``lang_id.json`` and ``spk_id.json``.  Checkpoints
-are ``model.ckpt-<step>`` files in the reference torch format; a run resumes
-from the latest one in ``--model-dir``.
+are written as ``model.ckpt-<step>`` files in the reference torch format; a
+run resumes from the latest one in ``--model-dir``.  ``--restore_from`` and
+the resume also read the JAX package's msgpack and sharded ``.d``
+checkpoints (``train/checkpoint.py:load_state``), Adam moments included.
 """
 
 import argparse

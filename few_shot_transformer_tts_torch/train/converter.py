@@ -4,6 +4,8 @@
 ``convert_torch_state_dict`` (``few_shot_transformer_tts_tpu/train/
 converter.py``): it takes the JAX ``{'params', 'batch_stats'}`` tree (numpy
 arrays, no JAX types) and returns the port's state dict.
+``jax_variables_from_state_dict`` is the port's copy of
+``convert_torch_state_dict``: the way back.
 
   flax Dense kernel [in, out]      -> Linear weight [out, in]
   flax Conv kernel [k, in, out]    -> Conv1d weight [out, in, k]
@@ -18,6 +20,9 @@ optimizer and LR scheduler when given.  ``optimizer_state_from_jax`` turns
 the JAX package's Adam moments into a ``torch.optim.Adam`` state dict, in
 ``model.parameters()`` order (the order the JAX package's
 ``_param_names_in_order`` assumes when it imports a torch optimizer).
+``from_jax_train_state`` turns a whole JAX train state, as its msgpack and
+sharded checkpoints hold it, into the state dict, the Adam state and the
+step.
 """
 
 from __future__ import annotations
@@ -46,12 +51,20 @@ def _torch_path(path) -> str:
     return ".".join(parts)
 
 
+def _float32(arr) -> np.ndarray:
+    """A numpy or torch leaf (a ``bfloat16`` leaf of a JAX checkpoint is a
+    torch tensor) as a float32 numpy copy."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().float().numpy().copy()
+    return np.array(arr, dtype=np.float32)
+
+
 def state_dict_from_jax_variables(variables: dict) -> Dict[str, torch.Tensor]:
     """The JAX package's ``{'params', 'batch_stats'}`` tree -> port state dict
     (fp32 tensors; ``num_batches_tracked`` 0 for every BatchNorm)."""
     out = {}
     for path, arr in _flatten(variables["params"]):
-        arr = np.array(arr, dtype=np.float32)
+        arr = _float32(arr)
         owner, leaf = _torch_path(path[:-1]), path[-1]
         if leaf == "pe_scale":
             out[_torch_path(path)] = arr.reshape(1)
@@ -70,7 +83,7 @@ def state_dict_from_jax_variables(variables: dict) -> Dict[str, torch.Tensor]:
         if leaf not in ("mean", "var"):
             raise ValueError("Unrecognized batch statistic: %s"
                              % "/".join(path))
-        out[owner + ".running_" + leaf] = np.array(arr, np.float32)
+        out[owner + ".running_" + leaf] = _float32(arr)
         out[owner + ".num_batches_tracked"] = np.zeros((), np.int64)
     return {k: torch.from_numpy(v).contiguous() for k, v in out.items()}
 
@@ -78,6 +91,82 @@ def state_dict_from_jax_variables(variables: dict) -> Dict[str, torch.Tensor]:
 def _strip_module(name: str) -> str:
     """Strip DataParallel/DDP prefixes (reference utils/checkpoint.py:21-26)."""
     return name[len("module."):] if name.startswith("module.") else name
+
+
+_NORM_LAYERS = ("attn_layer_norms", "ffn_layer_norms", "encdec_layer_norms",
+                "output_layer_norm", "batchnorm_layers")
+_EMBED_LAYERS = ("embed", "speaker_embed")
+
+
+def _jax_leaf(name: str):
+    """(kind, flax path) of a state-dict name, as the JAX package's
+    ``_classify`` gives them: ``self_attentions.0.x`` -> ``self_attentions_0
+    /x``; kind is 'skip', 'batch_stat', 'pe_scale', 'conv_kernel', 'kernel'
+    or 'as_is'."""
+    merged = []
+    for p in _strip_module(name).split("."):
+        if p.isdigit() and merged:
+            merged[-1] += "_" + p
+        else:
+            merged.append(p)
+    leaf, path = merged[-1], tuple(merged[:-1])
+    owner = merged[-2] if len(merged) >= 2 else ""
+    owner_base = owner.rsplit("_", 1)[0] if owner and owner[-1].isdigit() \
+        else owner
+    if leaf == "num_batches_tracked":
+        return "skip", ()
+    if leaf in ("running_mean", "running_var"):
+        return "batch_stat", path + (leaf[len("running_"):],)
+    if leaf == "pe_scale":
+        return "pe_scale", tuple(merged)
+    if leaf == "weight":
+        if owner_base in _NORM_LAYERS:
+            return "as_is", path + ("scale",)
+        if owner_base in _EMBED_LAYERS:
+            return "as_is", path + ("embedding",)
+        if owner_base == "conv_layers":
+            return "conv_kernel", path + ("kernel",)
+        return "kernel", path + ("kernel",)
+    if leaf == "bias":
+        return "as_is", path + ("bias",)
+    raise ValueError("Unrecognized parameter: %s" % name)
+
+
+def unflatten_dict(flat: dict) -> dict:
+    """{(key, ..., leaf): value} -> nested dicts."""
+    out = {}
+    for path, val in flat.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = val
+    return out
+
+
+def jax_variables_from_state_dict(state_dict) -> dict:
+    """Port (or reference) state dict -> the JAX package's ``{'params',
+    'batch_stats'}`` tree of numpy arrays, as its ``convert_torch_state_dict``
+    makes it: Linear weights transposed, Conv1d weights to [k, in, out],
+    ``pe_scale`` 0-d, running statistics to ``batch_stats`` (left out when
+    there are none), ``num_batches_tracked`` dropped."""
+    params, batch_stats = {}, {}
+    for name, tensor in state_dict.items():
+        kind, path = _jax_leaf(name)
+        if kind == "skip":
+            continue
+        arr = tensor.detach().cpu().numpy() \
+            if isinstance(tensor, torch.Tensor) else np.asarray(tensor)
+        if kind == "pe_scale":
+            arr = arr.reshape(())
+        elif kind == "conv_kernel":
+            arr = arr.transpose(2, 1, 0)
+        elif kind == "kernel":
+            arr = arr.T
+        (batch_stats if kind == "batch_stat" else params)[path] = arr
+    out = {"params": unflatten_dict(params)}
+    if batch_stats:
+        out["batch_stats"] = unflatten_dict(batch_stats)
+    return out
 
 
 def optimizer_state_from_jax(mu: dict, nu: dict, count: int,
@@ -96,6 +185,23 @@ def optimizer_state_from_jax(mu: dict, nu: dict, count: int,
              for i, name in enumerate(names)}
     return {"state": state,
             "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def from_jax_train_state(tree: dict, model: nn.Module, optimizer=None):
+    """A JAX train state as its checkpoints hold it, ``{step, params,
+    batch_stats, opt_state: {"0": {count, mu, nu}, "1": {count}}}`` (optax
+    Adam, then its schedule; the layout the JAX ``import_opt_state``
+    grafts), -> (the port's state dict, ``optimizer``'s state dict with the
+    Adam moments or None without an optimizer, the step)."""
+    state_dict = state_dict_from_jax_variables(
+        {"params": tree["params"], "batch_stats": tree.get("batch_stats")
+         or {}})
+    optim = None
+    if optimizer is not None:
+        adam = tree["opt_state"]["0"]
+        optim = optimizer_state_from_jax(adam["mu"], adam["nu"],
+                                         int(adam["count"]), model, optimizer)
+    return state_dict, optim, int(tree["step"])
 
 
 def load_reference_checkpoint(path: str, model: nn.Module, optimizer=None,

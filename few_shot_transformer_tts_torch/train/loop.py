@@ -15,8 +15,9 @@ As in the JAX package, the losses stay on the device and are fetched every
 in one transfer, so the host does not wait on the card every step; every
 step still gets its own log line.  Each step's dropout draws come from a
 generator seeded from (seed, step), so a resumed run draws the same masks.
-Multi-process training, the JAX package's profiler hooks and its log
-mirroring are not ported.
+After each checkpoint the log dir is mirrored to ``<model_dir>/logs``
+(``_mirror_logs``, rsync, best effort).  Multi-process training and the JAX
+package's profiler hooks are not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import datetime
 import json
 import logging
 import os
+import shutil
 import signal
+import subprocess
 import time
 import traceback
 from typing import Dict
@@ -331,6 +334,7 @@ def train(args, hp: Config):
                                     global_step)
                 ckpt_lib.save_feeder_state(logdir, rank, feeder)
                 logging.info("Save checkpoint to %s", model_dir)
+                _mirror_logs(logdir, os.path.join(model_dir, "logs"))
 
             if global_step % args.summary_interval == 0:
                 for key in ["loss", "mse_loss", "l2", "stop_loss",
@@ -378,6 +382,18 @@ def crash_save(logdir, model_dir, rank, feeder, model, optimizer, scheduler,
         logging.info("Crash checkpoint saved at step %d", global_step)
     except Exception:
         logging.error("Crash checkpoint failed:\n%s", traceback.format_exc())
+
+
+def _mirror_logs(logdir, dest):
+    """Mirror the log dir next to the checkpoints (reference train.py:213
+    uses ``rsync -avu``); best effort, skipped without rsync."""
+    try:
+        if shutil.which("rsync"):
+            subprocess.run(["rsync", "-au", logdir + "/", dest + "/"],
+                           check=False, capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError):
+        logging.warning("Mirroring %s to %s failed:\n%s", logdir, dest,
+                        traceback.format_exc())
 
 
 def _inline_eval(model, hp, feeder_eval, logdir, global_step):

@@ -1,7 +1,8 @@
 """One reference-format checkpoint through both synthesis CLIs: the port's
 ``python -m few_shot_transformer_tts_torch.synthesize --device cpu`` and the
 JAX package's root ``synthesize.py`` (both in-process, deterministic, fp32).
-The saved ``.npy`` mels must agree at 1e-4."""
+The saved ``.npy`` mels must agree at 1e-4.  The port's CLI also reads the
+JAX package's msgpack checkpoint of the same weights, to the same mels."""
 
 import importlib.util
 import json
@@ -10,6 +11,7 @@ import os
 import sys
 from pathlib import Path
 
+import flax.serialization
 import jax
 import numpy as np
 import pytest
@@ -105,7 +107,35 @@ def test_port_cli_needs_cuda_unless_asked_for_cpu(setup, tmp_path):
 def test_port_cli_rejects_other_checkpoint_formats(setup, tmp_path):
     root, _ = setup
     bogus = tmp_path / "model.ckpt-1"
-    bogus.write_bytes(b"\x83\xa6params")          # msgpack map header
-    with pytest.raises(ValueError, match="reference-format"):
+    bogus.write_bytes(b"\x93params")              # a msgpack array
+    with pytest.raises(ValueError, match="a torch file, a flax msgpack "
+                       "file or a sharded .d directory"):
         port_cli.main(_args(root, bogus, tmp_path / "out") +
                       ["--device", "cpu"])
+
+
+def test_port_cli_reads_a_jax_msgpack_checkpoint(setup, tmp_path):
+    """The same weights as the JAX package's msgpack train state (flax
+    ``to_bytes`` layout: step, params, Adam and schedule state,
+    batch_stats) give the torch checkpoint's mels."""
+    root, ckpt = setup
+    variables = jax_variables(21)
+    variables["params"]["decoder"]["stop_net"]["bias"] = \
+        np.asarray([-1e4], np.float32)
+    zeros = jax.tree.map(np.zeros_like, variables["params"])
+    count = np.asarray(3, np.int32)
+    msgpack_ckpt = tmp_path / "model.ckpt-3"
+    msgpack_ckpt.write_bytes(flax.serialization.msgpack_serialize({
+        "step": count, "params": variables["params"],
+        "opt_state": {"0": {"count": count, "mu": zeros, "nu": zeros},
+                      "1": {"count": count}},
+        "batch_stats": variables["batch_stats"]}))
+    torch_out, msgpack_out = tmp_path / "torch", tmp_path / "msgpack"
+    port_cli.main(_args(root, ckpt, torch_out) + ["--device", "cpu"])
+    port_cli.main(_args(root, msgpack_ckpt, msgpack_out) +
+                  ["--device", "cpu"])
+    for name in NAMES:
+        got = np.load(msgpack_out / (name + ".npy"))
+        want = np.load(torch_out / (name + ".npy"))
+        assert got.shape == want.shape == (12, 20)
+        np.testing.assert_allclose(got, want, atol=1e-4, err_msg=name)

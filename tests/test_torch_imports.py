@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of it, and not chip_smoke.py,
-imports JAX, flax, optax or the JAX package; and building any of its CUDA
+imports JAX, flax, optax or the JAX package, nor msgpack or requests (the
+port carries its own code for both jobs); and building any of its CUDA
 kernels fails loudly where there is no nvcc."""
 
 import ast
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "few_shot_transformer_tts_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "few_shot_transformer_tts_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "few_shot_transformer_tts_tpu",
+             "msgpack", "requests")
 
 
 def _sources():

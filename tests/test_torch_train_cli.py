@@ -159,6 +159,38 @@ def test_checkpoint_loads_into_the_jax_package(trained):
                 err_msg="%s %s" % (key, name))
 
 
+def test_cli_restores_from_a_jax_msgpack_checkpoint(corpus, trained):
+    """``--restore_from`` a JAX package msgpack train state holding the
+    step-3 checkpoint's weights and Adam moments continues as
+    ``--restore_from`` the torch checkpoint does: the same weights after
+    step 4."""
+    import flax.serialization
+    torch_ckpt = trained / "models" / "model.ckpt-3"
+    hp = jax_cfg().parse(HP_SPEC)
+    variables, opt_state, step = jax_load_reference_checkpoint(
+        str(torch_ckpt), tx=jax_make_optimizer(hp))
+    adam, schedule = jax.device_get(opt_state)
+    jax_ckpt = corpus / "jax_model.ckpt-3"
+    jax_ckpt.write_bytes(flax.serialization.msgpack_serialize({
+        "step": np.asarray(step, np.int32), "params": variables["params"],
+        "opt_state": {"0": {"count": adam.count, "mu": adam.mu,
+                            "nu": adam.nu},
+                      "1": {"count": schedule.count}},
+        "batch_stats": variables["batch_stats"]}))
+    models = {}
+    for run, path in (("from_torch", torch_ckpt), ("from_msgpack", jax_ckpt)):
+        models[run], last = cli.main(_argv(
+            corpus, run, "--device", "cpu", "--max_steps", "4",
+            "--restore_from", str(path)))
+        assert last == 4
+    want = models["from_torch"].state_dict()
+    got = models["from_msgpack"].state_dict()
+    for name in want:
+        if not name.endswith("num_batches_tracked"):
+            torch.testing.assert_close(got[name], want[name], rtol=0,
+                                       atol=0, msg=name)
+
+
 def test_cli_needs_cuda_unless_asked_for_cpu(corpus):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
