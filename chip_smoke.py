@@ -160,6 +160,31 @@ uncaught exception and a non-zero exit):
      numpy mel2wav's seconds for one utterance on the host, two calls the
      same bits, and at n_iter=2 one row against numpy by envelope
      correlation.
+  15. corpus: the corpus packer end to end.  Raw LJSpeech, thorsten and
+     CSS10 German layouts from --seed (22,050 Hz int16; 120 voice-like
+     utterances of 1.5-18 s each, about an hour in all; in each a gap
+     reject and two length rejects, in thorsten and CSS10 a digit row)
+     through the port's readers and ``python -m
+     few_shot_transformer_tts_torch.corpora.process_corpus``: trim and meta
+     in-process, then the mels stage twice, ``--device cpu`` (the numpy
+     pool) as its own process, as a user runs it, into one copy of the tree,
+     and the default ``--device cuda`` in-process into another (one
+     fused_frame_mel launch a batch, no frame past an utterance's end, and
+     no other kernel), then merge and stats for both.  The two packed trees
+     must hold the same metadata, id maps and lang_stat.tsv, and every mel
+     the same shape within TOL_MEL_NUMPY of numpy's; the wall time of each
+     stage (as the CLI prints it) and each mels path's audio s/s beside the
+     card's name and power limit, and the stage's frames with the kernel's
+     bound over them.  The largest LJSpeech batch through
+     fused_frame_mel_ragged against its plain version (TOL_MEL), with
+     kernel / plain / rfft-route ms and the bound: the kernel line's times;
+     then a batch of utterances voiced to their edges (a trimmed one's
+     silent margins hide a frame read from the wrong row) against the
+     plain version (TOL_MEL); each row of both must be the kernel's mel of
+     that row alone, bit for bit.  Then ``python -m
+     few_shot_transformer_tts_torch.train`` in-process for 3 steps of the
+     flagship default_config() on the kernel-built packed tree (overrides:
+     bucket_size and data_warmup_steps only): finite losses.
 
 Then a {"kernels": [...]} line (six kernels), and last {"ok": true,
 "device": {...}}.
@@ -2549,21 +2574,21 @@ def utterances(rng, b, seconds, sr=16000):
     return np.stack(rows).astype(np.float32)
 
 
-def mel_bound(rows, length, n_frames, hp):
-    """Least time for the kernel's function: the signal read once and the
-    mel written once; per frame the operations the function needs, a real
-    FFT (~2.5 n log2 n), the magnitude of each bin (4) and the mel product
-    over the filterbank's nonzero weights, at the fp32 rate.  Beside it the
+def mel_bound(n_samples, bt, hp):
+    """Least time for the kernel's function on ``bt`` frames of a signal of
+    ``n_samples``: the signal read once and the mel written once; per frame
+    the operations the function needs, a real FFT (~2.5 n log2 n), the
+    magnitude of each bin (4) and the mel product over the filterbank's
+    nonzero weights, at the fp32 rate.  Beside it the
     operations of a DFT over the window's nonzero taps (the kernel's route)
     and over all n_fft taps (the TPU kernel's products), dense mel product
     included."""
-    bt = rows * n_frames
     n_freqs = 1 + hp.n_fft // 2
     taps = int(np.count_nonzero(dsp._padded_window(hp.win_length,
                                                    hp.n_fft)))
     mel_nonzero = int(np.count_nonzero(dsp.mel_filterbank(
         hp.sr, hp.n_fft, hp.num_mels)))
-    nbytes = rows * length * 4 + bt * hp.num_mels * 4
+    nbytes = n_samples * 4 + bt * hp.num_mels * 4
     flops_fft = 2.5 * bt * hp.n_fft * np.log2(hp.n_fft)
     flops = flops_fft + 4.0 * bt * n_freqs + 2.0 * bt * mel_nonzero
     dense_mel = 2.0 * bt * n_freqs * hp.num_mels
@@ -2604,7 +2629,7 @@ def check_mel(name, rng, b, seconds, hp, iters=20):
                                  iters),
            "library": "melspectrogram(use_pallas=False): rfft route, "
                       "several calls",
-           **mel_bound(b, wav.shape[1], got.shape[1], hp)}
+           **mel_bound(wav.numel(), b * got.shape[1], hp)}
     row["ok"] = row["max_abs_err"] <= TOL_MEL["max"] and \
         row["mean_abs_err"] <= TOL_MEL["mean"] and row["finite"] and \
         launches == 1 and \
@@ -2896,6 +2921,362 @@ def vocode_phase(mel_aft, lengths, hp):
         raise AssertionError("vocode phase failed: %s" % row)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the corpus pipeline, its mels stage on fused_frame_mel
+# ---------------------------------------------------------------------------
+
+# utterances a corpus: above min_speaker_samples' 100 after the rejects
+CORPUS_UTTERANCES = 120
+CORPUS_WORDS = ("alpha bravo charlie delta echo foxtrot golf hotel india "
+                "juliet kilo lima mike november oscar papa quebec romeo "
+                "sierra tango uniform victor whiskey xray yankee zulu").split()
+# the flagship's hparams but for bucketing and the data warm-up
+CORPUS_HPARAMS = "bucket_size=64,data_warmup_steps=0"
+PACKED_FILES = ("metadata.train.txt", "metadata.eval.txt", "lang_id.json",
+                "spk_id.json", "lang_stat.tsv")
+
+
+def raw_utterance(rng, seconds, sr):
+    """Voice-like audio (``utterances``) between quiet edges, int16."""
+    quiet = lambda: 1e-4 * rng.randn(int(rng.uniform(0.05, 0.4) * sr))
+    y = np.concatenate([quiet(), utterances(rng, 1, seconds, sr)[0],
+                        quiet()])
+    return (np.clip(y, -1, 1) * 32767).astype(np.int16)
+
+
+def write_raw_corpora(raw, seed, sr=22050):
+    """The LJSpeech, thorsten and CSS10 German layouts (22,050 Hz int16, the
+    published corpora's format), CORPUS_UTTERANCES utterances of 1.5-18 s
+    each; in each,
+    utterance 0 has a 1.5 s pause (the trim stage rejects it for its gap),
+    1 and 2 last 0.4 s and 21 s (rejected for length), and in thorsten and
+    CSS10 row 3 holds a digit (the readers skip it).  Returns the seconds of
+    audio written."""
+    from scipy.io import wavfile
+    rng = np.random.RandomState(seed + 50)
+    layouts = {
+        "lj": (os.path.join(raw, "LJSpeech-1.1"), "metadata.csv",
+               "wavs/LJ001-%04d.wav", "{name}|raw|{text}"),
+        "th": (os.path.join(raw, "thorsten-de_v02", "thorsten-de"),
+               "metadata_train.csv", "wavs/th%04d.wav",
+               "{name}|{text}|{text}"),
+        "css": (os.path.join(raw, "css10_de"), "transcript.txt",
+                "buch/buch_%04d.wav", "{rel}|raw|{text}|1.0")}
+    total = 0
+    for key, (root, meta, wav, row) in layouts.items():
+        rows = []
+        for i in range(CORPUS_UTTERANCES):
+            rel = wav % i
+            if i == 0:
+                y = np.concatenate([raw_utterance(rng, 3.0, sr),
+                                    np.zeros(int(1.5 * sr), np.int16),
+                                    raw_utterance(rng, 3.0, sr)])
+            else:
+                y = raw_utterance(rng, {1: 0.4, 2: 21.0}.get(
+                    i, rng.uniform(1.5, 18.0)), sr)
+            os.makedirs(os.path.dirname(os.path.join(root, rel)),
+                        exist_ok=True)
+            wavfile.write(os.path.join(root, rel), sr, y)
+            total += len(y) / sr
+            text = " ".join(rng.choice(CORPUS_WORDS, 8))
+            if i == 3 and key != "lj":
+                text += " 42"
+            rows.append(row.format(name=os.path.basename(rel)[:-4], rel=rel,
+                                   text=text))
+        with open(os.path.join(root, meta), "w", encoding="utf-8") as f:
+            f.write("\n".join(rows) + "\n")
+    return total
+
+
+def packed_mels(packed):
+    import io
+    import zipfile
+    with zipfile.ZipFile(os.path.join(packed, "mels.zip")) as zf:
+        return {n: np.load(io.BytesIO(zf.read(n))) for n in zf.namelist()}
+
+
+def read_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def corpus_batch_check(tree, hp, iters=20):
+    """The kernel against its plain version on the card, on the largest
+    batch the mels stage gave LJSpeech (the same wavs, packed as the stage
+    packs them), with its times beside the bound and the rfft route; then
+    a batch of utterances voiced to their edges against the plain version;
+    and each row of both against the kernel's call on that row alone."""
+    from few_shot_transformer_tts_torch.corpora.common import wav_duration
+    from few_shot_transformer_tts_torch.corpora.process_corpus import \
+        mel_batches
+    from few_shot_transformer_tts_torch.ops.mel import (
+        fused_frame_mel_ragged, fused_frame_mel_ragged_plain)
+    corpus = os.path.join(tree, "ljspeech")
+    with open(os.path.join(corpus, "metadata.csv"), encoding="utf-8") as f:
+        wavs = [os.path.join(corpus, "proc_wavs", l.split("|")[0] + ".wav")
+                for l in f.read().splitlines()]
+    lengths = [round(wav_duration(w) * hp.sr) for w in wavs]
+    batch = max(mel_batches(lengths, hp), key=lambda b: sum(
+        1 + lengths[i] // hp.hop_length for i in b))
+    rows = [torch.from_numpy(dsp.load_wav(wavs[i], hp.sr)) for i in batch]
+    signal, starts, frames = dsp_torch.pack_ragged(rows, hp)
+    signal = signal.cuda()
+    got = fused_frame_mel_ragged(signal, starts, frames, hp)
+    want = fused_frame_mel_ragged_plain(signal, starts, frames, hp)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    basis = dsp_torch.device_constant(
+        ("mel_basis", hp.sr, hp.n_fft, hp.num_mels),
+        lambda: dsp.get_mel_basis(hp).T, signal.device)
+    win = dsp_torch.window(hp, signal.device)
+    rfft_route = lambda: dsp_torch.normalize_db(torch.fft.rfft(torch.cat([
+        signal[s:s + (t - 1) * hp.hop_length + hp.n_fft].unfold(
+            0, hp.n_fft, hp.hop_length) for s, t in zip(starts, frames)]) *
+        win).abs() @ basis, hp)
+    row = {"phase": "corpus_batch_check", "B": len(rows),
+           "lengths": [r.shape[0] for r in rows], "N": signal.shape[0],
+           "BT": got.shape[0],
+           "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
+           "tol": TOL_MEL, "finite": bool(torch.isfinite(got).all()),
+           "ms": cuda_ms(lambda: fused_frame_mel_ragged(
+               signal, starts, frames, hp), iters),
+           "plain_ms": cuda_ms(lambda: fused_frame_mel_ragged_plain(
+               signal, starts, frames, hp), max(iters // 5, 2)),
+           # several calls: framing, cuFFT rfft, |.|, fp32 mel product and
+           # the dB epilogue on the same packed rows
+           "library_ms": cuda_ms(rfft_route, iters),
+           "library": "rfft route on the packed rows, several calls",
+           # the kernel's own device time (torch.profiler)
+           "kernels_ms": kernel_split_ms(lambda: fused_frame_mel_ragged(
+               signal, starts, frames, hp)),
+           "host_us": host_us(lambda: fused_frame_mel_ragged(
+               signal, starts, frames, hp)),
+           **mel_bound(signal.shape[0], got.shape[0], hp)}
+    # utterances voiced to their edges (a trimmed one starts and ends in
+    # 1600 / 2400 zeros, where a frame read from the wrong row or past a
+    # row's end can still be all zeros)
+    rng = np.random.RandomState(7)
+    voiced = [torch.from_numpy(utterances(rng, 1, s)[0])
+              for s in (1.3, 2.9, 4.4, 7.05)]
+    v_signal, v_starts, v_frames = dsp_torch.pack_ragged(voiced, hp)
+    v_got = fused_frame_mel_ragged(v_signal.cuda(), v_starts, v_frames, hp)
+    v_err = (v_got - fused_frame_mel_ragged_plain(
+        v_signal.cuda(), v_starts, v_frames, hp)).abs()
+    row.update(voiced_max_abs_err=v_err.max().item(),
+               voiced_mean_abs_err=v_err.mean().item())
+    # each row of both batches is the kernel's mel of that utterance alone
+    single = lambda w: fused_frame_mel(dsp_torch.preemphasis(
+        w[None], hp.preemphasis).cuda(), hp)[0].cpu()
+    row["ragged_equals_single"] = all(
+        torch.equal(m, single(w))
+        for ws, out, fr in ((rows, got, frames), (voiced, v_got, v_frames))
+        for w, m in zip(ws, out.cpu().split(fr)))
+    row["ok"] = row["max_abs_err"] <= TOL_MEL["max"] and \
+        row["mean_abs_err"] <= TOL_MEL["mean"] and row["finite"] and \
+        row["voiced_max_abs_err"] <= TOL_MEL["max"] and \
+        row["voiced_mean_abs_err"] <= TOL_MEL["mean"] and \
+        row["ragged_equals_single"] and got.shape[0] == sum(frames)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("fused_frame_mel_ragged disagrees with its "
+                             "plain version or with single calls: %s" % row)
+    return row
+
+
+def mels_stage_split(tree, hp):
+    """The kernel's mels stage replayed serially over the same batches, its
+    host seconds by step: reading the wavs, packing them (pre-emphasis and
+    reflect padding on the host), the copy to the card, the launch and the
+    copy back, and writing the .npy bytes (to memory)."""
+    import io
+    from few_shot_transformer_tts_torch.corpora import process_corpus as pc
+    from few_shot_transformer_tts_torch.corpora.common import wav_duration
+    from few_shot_transformer_tts_torch.ops.mel import fused_frame_mel_ragged
+    split = dict.fromkeys(("read", "pack", "card", "save"), 0.0)
+    for corpus in sorted(os.listdir(tree)):
+        jobs = pc._mel_jobs(os.path.join(tree, corpus))
+        lengths = [round(wav_duration(w) * hp.sr) for w, _ in jobs]
+        for batch in pc.mel_batches(lengths, hp):
+            t0 = time.perf_counter()
+            wavs = [torch.from_numpy(dsp.load_wav(jobs[i][0], hp.sr))
+                    for i in batch]
+            t1 = time.perf_counter()
+            signal, starts, frames = dsp_torch.pack_ragged(wavs, hp)
+            t2 = time.perf_counter()
+            mel = fused_frame_mel_ragged(signal.cuda(), starts, frames,
+                                         hp).cpu()
+            t3 = time.perf_counter()
+            for m in mel.split(frames):
+                np.save(io.BytesIO(), m.numpy())
+            t4 = time.perf_counter()
+            for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+                split[key] += dt
+    return split
+
+
+def stage_seconds(text, name):
+    """The wall time the packer's CLI printed for a stage."""
+    return float(re.findall(r"^%s stage: ([0-9.]+) s$" % name, text,
+                            re.M)[-1])
+
+
+def corpus_phase(out_dir, seed, smi):
+    """Raw LJSpeech, thorsten and CSS10 German layouts through the port's
+    readers and ``python -m few_shot_transformer_tts_torch.corpora.
+    process_corpus``, the mels stage twice: ``--device cpu`` (the numpy
+    pool) as its own process into one copy of the tree and the default
+    ``--device cuda`` in-process into another; then 3 flagship train steps
+    on the kernel-built packed tree."""
+    import io
+    import shutil
+    from few_shot_transformer_tts_torch.corpora import datasets
+    from few_shot_transformer_tts_torch.corpora import process_corpus as pc
+    from few_shot_transformer_tts_torch.corpora.common import wav_duration
+    from few_shot_transformer_tts_torch.train import cli
+    hp = default_config()
+    root = os.path.join(out_dir, "corpus")
+    shutil.rmtree(root, ignore_errors=True)
+    raw = os.path.join(root, "raw")
+    trees = {k: os.path.join(root, k, "transformed")
+             for k in ("numpy", "kernel")}
+    packs = {k: os.path.join(root, k, "packed") for k in trees}
+    wall = {}
+    tic = time.perf_counter()
+    raw_s = write_raw_corpora(raw, seed)
+    wall["write_raw"] = time.perf_counter() - tic
+    log = open(os.path.join(root, "corpus.log"), "w")
+
+    def stage(name, tree):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            pc.main(["--transformed", trees[tree], "--packed", packs[tree],
+                     "--stages", name.split(":")[0]])
+        log.write(out.getvalue())
+        wall[name] = stage_seconds(out.getvalue(), name.split(":")[0])
+
+    tic = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        datasets.prepare_ljspeech(raw, trees["numpy"])
+        datasets.prepare_thorsten(raw, trees["numpy"])
+        datasets.prepare_css10(raw, trees["numpy"], langs=["de_de"])
+    wall["readers"] = time.perf_counter() - tic
+    stage("trim", "numpy")
+    stage("meta", "numpy")
+    shutil.copytree(trees["numpy"], trees["kernel"])
+    names, audio_s, batch_frames, bound_ms = {}, 0.0, [], 0.0
+    for corpus in ("ljspeech", "thorsten", "css10_de"):
+        d = os.path.join(trees["kernel"], corpus)
+        with open(os.path.join(d, "metadata.csv"), encoding="utf-8") as f:
+            names[corpus] = [l.split("|")[0] for l in f.read().splitlines()]
+        secs = [wav_duration(os.path.join(d, "proc_wavs", n + ".wav"))
+                for n in names[corpus]]
+        audio_s += sum(secs)
+        lengths = [round(s * hp.sr) for s in secs]
+        for b in pc.mel_batches(lengths, hp):
+            batch_frames.append(sum(1 + lengths[i] // hp.hop_length
+                                    for i in b))
+            bound_ms += mel_bound(sum(lengths[i] + hp.n_fft for i in b),
+                                  batch_frames[-1], hp)["bound_ms"]
+    # the numpy stage as a user runs it: its own process, no CUDA in it, a
+    # forked pool of --workers (default: the machine's cores)
+    tic = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "few_shot_transformer_tts_torch.corpora.process_corpus",
+         "--transformed", trees["numpy"], "--packed", packs["numpy"],
+         "--stages", "mels", "--device", "cpu"], cwd=ROOT,
+        capture_output=True, text=True, timeout=900)
+    wall["mels:numpy_process"] = time.perf_counter() - tic
+    log.write(proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise RuntimeError("the numpy mels stage exited %d: %s"
+                           % (proc.returncode, proc.stderr[-2000:]))
+    wall["mels:numpy"] = stage_seconds(proc.stdout, "mels")
+    torch.cuda.synchronize()
+    reset_counts()
+    stage("mels:kernel", "kernel")
+    counts = read_counts()
+    split = mels_stage_split(trees["kernel"], hp)
+    for tree in trees:
+        stage("merge:" + tree, tree)
+        stage("stats:" + tree, tree)
+    log.close()
+
+    # the two packed trees: the same files but for the mel values
+    same_files = {f: read_bytes(os.path.join(packs["kernel"], f)) ==
+                  read_bytes(os.path.join(packs["numpy"], f))
+                  for f in PACKED_FILES}
+    got, want = packed_mels(packs["kernel"]), packed_mels(packs["numpy"])
+    shapes_equal = sorted(got) == sorted(want) and all(
+        got[n].shape == want[n].shape and got[n].dtype == np.float32
+        for n in want)
+    errs = np.array([[np.abs(got[n] - want[n]).max(),
+                      np.abs(got[n] - want[n]).mean()] for n in want]) \
+        if shapes_equal else np.full((1, 2), np.inf)
+    with open(os.path.join(packs["kernel"], "metadata.train.txt"),
+              encoding="utf-8") as f:
+        train_rows = f.read().splitlines()
+    row = {"phase": "corpus", "nvidia_smi": smi, "raw_audio_s": raw_s,
+           "utterances_written": 3 * CORPUS_UTTERANCES,
+           "utterances_kept": {c: len(v) for c, v in names.items()},
+           "packed_audio_s": audio_s, "mels": len(want),
+           "train_rows": len(train_rows), "wall_s": wall,
+           "mels_audio_s_per_s": {
+               "numpy_pool_%d_workers" % os.cpu_count():
+               audio_s / wall["mels:numpy"],
+               "kernel": audio_s / wall["mels:kernel"]},
+           # the kernel computes each utterance's frames and no others
+           "batches": len(batch_frames), "stage_frames": sum(batch_frames),
+           "frames_per_batch": batch_frames,
+           "stage_bound_ms": float(bound_ms),
+           "kernel_stage_serial_split_s": split,
+           "launches_by_kernel": counts,
+           "same_packed_files": same_files, "same_mel_shapes": shapes_equal,
+           "max_abs_err_vs_numpy": float(errs[:, 0].max()),
+           "worst_mean_abs_err_vs_numpy": float(errs[:, 1].max()),
+           "tol": TOL_MEL_NUMPY}
+    # what the inputs were made to exercise: per corpus one gap and two
+    # length rejects, and the digit row in thorsten and CSS10
+    row["ok"] = all(same_files.values()) and shapes_equal and \
+        row["max_abs_err_vs_numpy"] <= TOL_MEL_NUMPY["max"] and \
+        row["worst_mean_abs_err_vs_numpy"] <= TOL_MEL_NUMPY["mean"] and \
+        counts == dict(NO_LAUNCHES, fused_frame_mel=len(batch_frames)) and \
+        row["utterances_kept"] == {"ljspeech": CORPUS_UTTERANCES - 3,
+                                   "thorsten": CORPUS_UTTERANCES - 4,
+                                   "css10_de": CORPUS_UTTERANCES - 4} and \
+        len(train_rows) > 0
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("corpus phase failed: %s" % row)
+    batch = corpus_batch_check(trees["kernel"], hp)
+
+    # three flagship train steps on the kernel-built packed tree
+    models = os.path.join(root, "models")
+    argv = ["--model-dir", models, "--log-dir", os.path.join(root, "logs"),
+            "--data-dir", packs["kernel"], "--max_steps", "3",
+            "--checkpoint_interval", "1000", "--summary_interval", "1000",
+            "--log_interval", "1", "--hparams", CORPUS_HPARAMS,
+            "--seed", str(seed)]
+    train_log = os.path.join(root, "train.log")
+    tic = time.perf_counter()
+    with open(train_log, "w") as f, contextlib.redirect_stdout(f):
+        _, step = cli.main(argv)
+    wall["train_3_steps"] = time.perf_counter() - tic
+    with open(train_log) as f:
+        losses = [float(x) for x in re.findall(
+            r"\] .*?, loss=([^,]+),", f.read())]
+    row = {"phase": "corpus_train", "steps": step, "losses": losses,
+           "wall_s": wall["train_3_steps"],
+           "hparams": CORPUS_HPARAMS}
+    row["ok"] = step == 3 and len(losses) == 3 and \
+        all(np.isfinite(losses))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("training on the packed corpus failed: %s"
+                             % row)
+    return {"counts": counts, "batch": batch}
+
+
 KERNEL_SOURCES = {
     "mha_forward": ("few_shot_transformer_tts_torch/csrc/mha_fwd.cu",
                     "few_shot_transformer_tts_tpu/ops/"
@@ -2934,7 +3315,7 @@ PHASES = ("kernel_check", "train_kernel_check", "ln_kernel_check",
           "decode_kernel_check",
           "dsp_kernel_check", "adam_kernel_check", "main_path",
           "main_path_fused", "vocode", "cli", "eval_service", "train",
-          "train_fused_adam", "train_cli")
+          "train_fused_adam", "train_cli", "corpus")
 
 
 def main():
@@ -3046,6 +3427,8 @@ def main():
                                                          train_sec)
     if "train_cli" in phases:
         train_cli_phase(args.out_dir, args.seed)
+    if "corpus" in phases:
+        out["corpus"] = corpus_phase(args.out_dir, args.seed, smi)
     if tuple(phases) != PHASES:
         emit({"partial": list(phases)})
         return
@@ -3058,7 +3441,8 @@ def main():
         "eval_service": out["eval"][name],
         "train_10_steps": train[name],
         "train_10_steps_fused_adam": out["train_fused_adam"][name],
-        "melspectrogram_batch": out["dsp"]["counts"][name]}
+        "melspectrogram_batch": out["dsp"]["counts"][name],
+        "corpus_mels": out["corpus"]["counts"][name]}
     dec = rows["decoder_causal"]
     emit({"kernels": [
         kernel_line("mha_forward", dec["forward"],
@@ -3078,10 +3462,11 @@ def main():
                     out["fused"]["decoder_frame_step"],
                     paths("decoder_frame_step"),
                     barriers_per_frame=out["decode"]["barriers_per_frame"]),
-        # feature extraction: one batched call at full width
-        kernel_line("fused_frame_mel", out["dsp"]["full"],
-                    out["dsp"]["full"]["max_abs_err"],
-                    out["dsp"]["counts"]["fused_frame_mel"],
+        # the corpus packer's mels stage on the card: one launch a batch;
+        # the times of its largest LJSpeech batch
+        kernel_line("fused_frame_mel", out["corpus"]["batch"],
+                    out["corpus"]["batch"]["max_abs_err"],
+                    out["corpus"]["counts"]["fused_frame_mel"],
                     paths("fused_frame_mel")),
         # use_fused_adam training: one launch over 37 leaves per step
         kernel_line("fused_adam_step", out["adam"],

@@ -15,9 +15,14 @@
 // Design.  One warp computes one frame; the four warps of a block take
 // four neighbouring frames at a time and walk the frames of every row with
 // a grid stride, so a 0.4 s input (33 frames) spreads over 9 SMs and a
-// batch of 16 x 10 s over all of them.  Per frame, in fp32, in registers
-// and the warp's shared memory (the [BT, n_fft] frames and the [BT, 1025]
-// magnitudes never reach device memory):
+// batch of 16 x 10 s over all of them.  Rows come in one of two layouts:
+// of one width with one frame count (`frame_mel`), or ragged
+// (`frame_mel_ragged`: each row its own start in the signal and its own
+// frame count, the output rows packed; a warp finds its frame's row by a
+// binary search over the frame offsets), so a batch of utterances of
+// different lengths computes no frame past any row's end.  Per frame, in
+// fp32, in registers and the warp's shared memory (the [BT, n_fft] frames
+// and the [BT, 1025] magnitudes never reach device memory):
 //   * the frame: the window's nonzero taps at their true offsets (first,
 //     first + taps) of the 2048, the rest zero, so the phases are those of
 //     the full n_fft DFT; packed as 1024 complex values z_n = x_2n +
@@ -48,10 +53,10 @@
 // frame), the magnitudes and the sparse mel product, 0.83 GFLOP, 12 us at
 // 67 TFLOP/s fp32 -- operations bound it.
 //
-// Interface: a plain C entry, built by nvcc into a shared library and loaded
-// with ctypes (few_shot_transformer_tts_torch/ops/cuda_build.py).  It
-// launches on the given stream, allocates nothing and returns the launch
-// error.
+// Interface: two plain C entries, one per layout, built by nvcc into a
+// shared library and loaded with ctypes
+// (few_shot_transformer_tts_torch/ops/cuda_build.py).  Each launches on the
+// given stream, allocates nothing and returns the launch error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,7 +122,9 @@ inline size_t smem_bytes(int taps, int n_mels, int nnz) {
 template <int kBands>
 __global__ void __launch_bounds__(kThreads)
 frame_mel_fft(const float* __restrict__ y, long long row_stride,
-              long long total, int n_frames, int hop,
+              long long total, int n_frames, int rows,
+              const long long* __restrict__ frame_off,
+              const long long* __restrict__ sample_off, int hop,
               const float* __restrict__ win, int first, int taps,
               const float2* __restrict__ tw, const int* __restrict__ band,
               const __nv_bfloat16* __restrict__ melw, int nnz, int n_mels,
@@ -145,9 +152,18 @@ frame_mel_fft(const float* __restrict__ y, long long row_stride,
 
   for (long long gf = static_cast<long long>(blockIdx.x) * kWarps + warp;
        gf < total; gf += static_cast<long long>(gridDim.x) * kWarps) {
-    const long long row = gf / n_frames;
-    const int t = static_cast<int>(gf - row * n_frames);
-    const float* src = y + row * row_stride + static_cast<long long>(t) * hop;
+    const float* src;
+    if (frame_off != nullptr) {   // ragged: the row r with frame_off[r] <= gf
+      int lo = 0, hi = rows;
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (__ldg(frame_off + mid) <= gf) lo = mid; else hi = mid;
+      }
+      src = y + __ldg(sample_off + lo) + (gf - __ldg(frame_off + lo)) * hop;
+    } else {
+      const long long row = gf / n_frames;
+      src = y + row * row_stride + (gf - row * n_frames) * hop;
+    }
 
     // z_{32 n1 + lane} = x_2n + i x_2n+1, windowed; zero off the taps
     float2 a[kR];
@@ -223,7 +239,9 @@ frame_mel_fft(const float* __restrict__ y, long long row_stride,
 
 template <int kBands>
 cudaError_t launch(const float* y, long long total, long long row_stride,
-                   int n_frames, int hop, const float* win, int first,
+                   int n_frames, int rows, const long long* frame_off,
+                   const long long* sample_off, int hop, const float* win,
+                   int first,
                    int taps, const float2* tw, const int* band,
                    const __nv_bfloat16* melw, int nnz, int n_mels,
                    float ref_db, float max_db, float max_abs, int symmetric,
@@ -248,31 +266,31 @@ cudaError_t launch(const float* y, long long total, long long row_stride,
   const long long fit = static_cast<long long>(sms) * per_sm;
   const int blocks = static_cast<int>(want < fit ? want : fit);
   frame_mel_fft<kBands><<<blocks, kThreads, smem, stream>>>(
-      y, row_stride, total, n_frames, hop, win, first, taps, tw, band, melw,
-      nnz, n_mels, ref_db, max_db, max_abs, symmetric, out);
+      y, row_stride, total, n_frames, rows, frame_off, sample_off, hop, win,
+      first, taps, tw, band, melw, nnz, n_mels, ref_db, max_db, max_abs,
+      symmetric, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// y: row 0 of the reflect-padded signal (fp32, rows of row_stride samples;
-// frame t of a row starts at t * hop, n_fft = 2048 samples); win [taps] the
-// window's nonzero taps, the first at offset `first` of the frame
-// (first + taps <= 2048); tw [2064] float2, the twiddle table of
-// ops/mel.py fft_twiddles; band [3][n_mels] int32: each band's first bin,
-// bin count and offset into melw, its bf16 weights (nnz in all); out
-// [rows, n_frames, n_mels] fp32.  n_mels <= 128.
-extern "C" int frame_mel(const void* y, int rows, long long row_stride,
-                         int n_frames, int hop, const void* win, int first,
-                         int taps, const void* tw, const void* band,
-                         const void* melw, int nnz, int n_mels, float ref_db,
-                         float max_db, float max_abs, int symmetric,
-                         void* out, void* stream) {
-  if (rows < 1 || n_frames < 1 || hop < 1 || taps < 1 || first < 0 ||
+// Both layouts: y the reflect-padded signal (fp32; frame t of a row is its
+// n_fft = 2048 samples from t * hop); win [taps] the window's nonzero taps,
+// the first at offset `first` of the frame (first + taps <= 2048); tw [2064]
+// float2, the twiddle table of ops/mel.py fft_twiddles; band [3][n_mels]
+// int32: each band's first bin, bin count and offset into melw, its bf16
+// weights (nnz in all).  n_mels <= 128.
+static int run(const void* y, long long total, long long row_stride,
+               int n_frames, int rows, const long long* frame_off,
+               const long long* sample_off, int hop, const void* win,
+               int first, int taps, const void* tw, const void* band,
+               const void* melw, int nnz, int n_mels, float ref_db,
+               float max_db, float max_abs, int symmetric, void* out,
+               void* stream) {
+  if (rows < 1 || total < 1 || hop < 1 || taps < 1 || first < 0 ||
       first + taps > kNfft || nnz < 0 || n_mels < 1 || n_mels > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = static_cast<long long>(rows) * n_frames;
   const float* yf = static_cast<const float*>(y);
   const float* wf = static_cast<const float*>(win);
   const float2* tf = static_cast<const float2*>(tw);
@@ -281,13 +299,48 @@ extern "C" int frame_mel(const void* y, int rows, long long row_stride,
   float* of = static_cast<float*>(out);
   const cudaError_t err =
       n_mels <= 96
-          ? launch<3>(yf, total, row_stride, n_frames, hop, wf, first, taps,
-                      tf, bf, mf, nnz, n_mels, ref_db, max_db, max_abs,
-                      symmetric, of, s)
-          : launch<4>(yf, total, row_stride, n_frames, hop, wf, first, taps,
-                      tf, bf, mf, nnz, n_mels, ref_db, max_db, max_abs,
-                      symmetric, of, s);
+          ? launch<3>(yf, total, row_stride, n_frames, rows, frame_off,
+                      sample_off, hop, wf, first, taps, tf, bf, mf, nnz,
+                      n_mels, ref_db, max_db, max_abs, symmetric, of, s)
+          : launch<4>(yf, total, row_stride, n_frames, rows, frame_off,
+                      sample_off, hop, wf, first, taps, tf, bf, mf, nnz,
+                      n_mels, ref_db, max_db, max_abs, symmetric, of, s);
   return static_cast<int>(err);
+}
+
+// Rows of one width: y row 0, rows of row_stride samples, n_frames frames
+// each; out [rows, n_frames, n_mels] fp32.
+extern "C" int frame_mel(const void* y, int rows, long long row_stride,
+                         int n_frames, int hop, const void* win, int first,
+                         int taps, const void* tw, const void* band,
+                         const void* melw, int nnz, int n_mels, float ref_db,
+                         float max_db, float max_abs, int symmetric,
+                         void* out, void* stream) {
+  if (n_frames < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run(y, static_cast<long long>(rows) * n_frames, row_stride,
+             n_frames, rows, nullptr, nullptr, hop, win, first, taps, tw,
+             band, melw, nnz, n_mels, ref_db, max_db, max_abs, symmetric,
+             out, stream);
+}
+
+// Ragged rows, on the device: frame_off [rows + 1] int64, rising from
+// frame_off[0] = 0 to frame_off[rows] = total, and sample_off [rows] int64:
+// row r's frame t starts at sample sample_off[r] + t * hop of y and is out
+// row frame_off[r] + t; out [total, n_mels] fp32.  Every row has at least
+// one frame.
+extern "C" int frame_mel_ragged(const void* y, int rows, const void* frame_off,
+                                const void* sample_off, long long total,
+                                int hop, const void* win, int first, int taps,
+                                const void* tw, const void* band,
+                                const void* melw, int nnz, int n_mels,
+                                float ref_db, float max_db, float max_abs,
+                                int symmetric, void* out, void* stream) {
+  if (frame_off == nullptr || sample_off == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return run(y, total, 0, 0, rows, static_cast<const long long*>(frame_off),
+             static_cast<const long long*>(sample_off), hop, win, first,
+             taps, tw, band, melw, nnz, n_mels, ref_db, max_db, max_abs,
+             symmetric, out, stream);
 }
 
 extern "C" const char* frame_mel_error_string(int code) {

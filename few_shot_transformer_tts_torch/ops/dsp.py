@@ -9,7 +9,8 @@ amplitude -> pinv mel basis -> Griffin-Lim (60 iterations, power 1.5) ->
 de-emphasis (``mel2wav``).  This is the float64 golden reference of the
 batched torch DSP in ``ops/dsp_torch.py`` and of the ``fused_frame_mel``
 kernel (``ops/mel.py``); ``save_eval_results`` uses ``mel2wav`` per sample
-on the CPU.
+on the CPU.  Wav reading (``load_wav``, polyphase ``resample_poly``) and
+``trim_edges`` serve the corpus packer (``corpora/process_corpus.py``).
 """
 
 from __future__ import annotations
@@ -230,6 +231,32 @@ def mel2wav(mel: np.ndarray, hp: Config) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def load_wav(path: str, sr: int = 16000) -> np.ndarray:
+    """Load a wav file as float32 mono at the given sample rate."""
+    from scipy.io import wavfile
+    file_sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        data = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        data = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        data = data.astype(np.float32)
+    if data.ndim > 1:
+        data = data.mean(axis=-1)
+    if file_sr != sr:
+        data = resample_poly(data, sr, file_sr)
+    return data
+
+
+def resample_poly(y: np.ndarray, target_sr: int, source_sr: int) -> np.ndarray:
+    from scipy import signal as sps
+    from math import gcd
+    g = gcd(target_sr, source_sr)
+    return sps.resample_poly(y, target_sr // g, source_sr // g).astype(np.float32)
+
+
 def save_wav(wav: np.ndarray, path: str, sr: int = 16000) -> str:
     """Peak-normalize and save as float32 wav (reference utils/audio.py:105-108)."""
     from scipy.io import wavfile
@@ -282,3 +309,13 @@ def trim_silence_intervals(wav: np.ndarray, hp: Config) -> np.ndarray:
     if len(intervals) == 0:
         return wav
     return np.concatenate([wav[l:r] for l, r in intervals])
+
+
+def trim_edges(y: np.ndarray, top_db: float, frame_length: int,
+               hop_length: int):
+    """Leading/trailing silence trim (librosa.effects.trim): (trimmed, (l, r))."""
+    intervals = split_intervals(y, top_db, frame_length, hop_length)
+    if len(intervals) == 0:
+        return y[0:0], (0, 0)
+    l, r = int(intervals[0, 0]), int(intervals[-1, 1])
+    return y[l:r], (l, r)

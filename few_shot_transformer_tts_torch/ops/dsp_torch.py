@@ -163,6 +163,39 @@ def melspectrogram(wav: torch.Tensor, hp: Config,
     return normalize_db(stft_mag(y, hp) @ basis, hp)        # [..., T, M]
 
 
+def pack_ragged(wavs, hp: Config):
+    """Utterances of different lengths (1-D tensors) -> (signal [N] fp32,
+    starts, frames), the layout of ``fused_frame_mel_ragged``: each
+    pre-emphasised and reflect-padded by n_fft // 2 on its own, as
+    ``melspectrogram`` does for one row, then put one after another; row
+    r starts at sample starts[r] and has frames[r] = 1 + L // hop frames."""
+    half = hp.n_fft // 2
+    rows, starts, frames, at = [], [], [], 0
+    for w in wavs:
+        if w.shape[0] <= half:
+            raise ValueError("reflect padding by %d needs more than %d "
+                             "samples, got %d" % (half, half, w.shape[0]))
+        y = preemphasis(w.float(), hp.preemphasis)
+        rows.append(F.pad(y[None], (half, half), mode="reflect")[0])
+        starts.append(at)
+        frames.append(1 + w.shape[0] // hp.hop_length)
+        at += rows[-1].shape[0]
+    return torch.cat(rows), starts, frames
+
+
+def melspectrogram_ragged(wavs, hp: Config, device) -> list:
+    """Sibling of ``melspectrogram(use_pallas=True)`` for utterances of
+    different lengths: 1-D wav tensors on the host -> one mel [1 + L // hop,
+    n_mels] each, on the host, through one ``fused_frame_mel_ragged`` call on
+    ``device`` (one kernel launch on a CUDA device; the plain version on the
+    CPU).  The kernel gives each utterance the mel that
+    ``melspectrogram(use_pallas=True)`` gives it alone."""
+    from .mel import fused_frame_mel_ragged
+    signal, starts, frames = pack_ragged(wavs, hp)
+    mel = fused_frame_mel_ragged(signal.to(device), starts, frames, hp)
+    return list(mel.cpu().split(frames))
+
+
 # ---------------------------------------------------------------------------
 # Griffin-Lim vocoder (batched, on the device)
 # ---------------------------------------------------------------------------

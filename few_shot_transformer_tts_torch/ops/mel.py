@@ -11,14 +11,18 @@ The DFT stays fp32 (no TF32, no tensor cores): quiet bins come from
 near-total cancellation of large terms.  The bf16 rounding of the magnitude
 and of the mel weights is part of the function, as in the TPU kernel.
 
-``fused_frame_mel(y, hp)`` takes the signal: for CUDA tensors it launches
-``csrc/frame_mel.cu``, which reads the reflect-padded signal and applies
+``fused_frame_mel(y, hp)`` takes the signal and reflect-pads each row;
+``fused_frame_mel_ragged(signal, starts, frames, hp)`` takes rows of
+different lengths, already padded, one after another in one signal, each
+with its own frame count (the corpus packer's batches: each utterance
+reflect-padded on its own).  For CUDA tensors they launch
+``csrc/frame_mel.cu``, which reads the padded signal and applies
 the window itself (the [BT, n_fft] frames and the [BT, F] magnitude never
 reach device memory) and computes the spectrum with a real FFT per frame
 (n_fft = 2048: a 32 x 32 four-step complex FFT of 1024 points and the
 real-FFT split step, twiddles from ``fft_twiddles``), then the mel product
-over the filterbank's nonzero weights (``mel_bands``); for CPU tensors it
-frames in PyTorch and takes ``fused_frame_mel_plain``, the same math on
+over the filterbank's nonzero weights (``mel_bands``); for CPU tensors they
+frame in PyTorch and take ``fused_frame_mel_plain``, the same math on
 windowed frames with the DFT as a product (also what the tests and
 ``chip_smoke.py`` hold the kernel against).
 """
@@ -171,6 +175,29 @@ def fused_frame_mel_plain(frames: torch.Tensor, hp: Config) -> torch.Tensor:
     return normalize_db(mel, hp)
 
 
+def _check_kernel_config(hp: Config):
+    if not 1 <= hp.num_mels <= _MAX_MELS:
+        raise ValueError("the kernel takes 1 to %d mels, got %d"
+                         % (_MAX_MELS, hp.num_mels))
+    if hp.n_fft != FFT_SIZE:
+        raise ValueError("the kernel's FFT takes n_fft %d, got %d"
+                         % (FFT_SIZE, hp.n_fft))
+
+
+def _launch_error(lib, err):
+    if err != 0:
+        raise RuntimeError("frame_mel launch failed: %s"
+                           % lib.frame_mel_error_string(err).decode())
+
+
+def _table_args(m: dict, hp: Config) -> tuple:
+    return (hp.hop_length, m["win_taps"].data_ptr(), m["first"], m["count"],
+            m["twiddles"].data_ptr(), m["band"].data_ptr(),
+            m["band_w"].data_ptr(), m["band_w"].numel(), hp.num_mels,
+            float(hp.ref_db), float(hp.max_db), float(hp.max_abs_value),
+            int(bool(hp.symmetric_mel)))
+
+
 def fused_frame_mel(y: torch.Tensor, hp: Config) -> torch.Tensor:
     """Pre-emphasised signal [..., L] -> normalised mel [..., T, n_mels],
     T = 1 + L // hop.  CPU tensors take the plain version; CUDA tensors
@@ -180,12 +207,7 @@ def fused_frame_mel(y: torch.Tensor, hp: Config) -> torch.Tensor:
     if y.device.type != "cuda":
         raise ValueError("fused_frame_mel runs on CPU or CUDA tensors, not "
                          "%s" % y.device)
-    if not 1 <= hp.num_mels <= _MAX_MELS:
-        raise ValueError("the kernel takes 1 to %d mels, got %d"
-                         % (_MAX_MELS, hp.num_mels))
-    if hp.n_fft != FFT_SIZE:
-        raise ValueError("the kernel's FFT takes n_fft %d, got %d"
-                         % (FFT_SIZE, hp.n_fft))
+    _check_kernel_config(hp)
     length = y.shape[-1]
     half = hp.n_fft // 2
     if length <= half:
@@ -199,19 +221,80 @@ def fused_frame_mel(y: torch.Tensor, hp: Config) -> torch.Tensor:
                       dtype=torch.float32, device=y.device)
     if rows.shape[0]:
         lib = _library()
-        err = lib.frame_mel(
+        _launch_error(lib, lib.frame_mel(
             padded.data_ptr(), rows.shape[0], padded.shape[1], n_frames,
-            hp.hop_length, m["win_taps"].data_ptr(), m["first"], m["count"],
-            m["twiddles"].data_ptr(), m["band"].data_ptr(),
-            m["band_w"].data_ptr(), m["band_w"].numel(), hp.num_mels,
-            float(hp.ref_db), float(hp.max_db), float(hp.max_abs_value),
-            int(bool(hp.symmetric_mel)), out.data_ptr(),
-            torch.cuda.current_stream(y.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError("frame_mel launch failed: %s"
-                               % lib.frame_mel_error_string(err).decode())
+            *_table_args(m, hp), out.data_ptr(),
+            torch.cuda.current_stream(y.device).cuda_stream))
         fused_frame_mel.launches += 1
     return out.reshape(y.shape[:-1] + (n_frames, hp.num_mels))
+
+
+def _ragged_frame_offsets(signal: torch.Tensor, starts, frames,
+                          hp: Config) -> list:
+    """[0, frames[0], frames[0] + frames[1], ...] after checking that every
+    row's frames lie inside the signal."""
+    if signal.dim() != 1 or len(starts) != len(frames) or not len(frames):
+        raise ValueError("a ragged call takes a 1-D signal and one start "
+                         "and one frame count per row, got %s, %d, %d"
+                         % (tuple(signal.shape), len(starts), len(frames)))
+    offsets = [0]
+    for s, t in zip(starts, frames):
+        if t < 1 or s < 0 or \
+                s + (t - 1) * hp.hop_length + hp.n_fft > signal.shape[0]:
+            raise ValueError("a row of %d frames from sample %d does not fit "
+                             "a signal of %d samples" % (t, s,
+                                                         signal.shape[0]))
+        offsets.append(offsets[-1] + int(t))
+    return offsets
+
+
+def fused_frame_mel_ragged_plain(signal: torch.Tensor, starts, frames,
+                                 hp: Config) -> torch.Tensor:
+    """Plain version of ``fused_frame_mel_ragged``: each row's frames
+    (strided views), windowed, concatenated and through
+    ``fused_frame_mel_plain``."""
+    _ragged_frame_offsets(signal, starts, frames, hp)
+    win = window(hp, signal.device)
+    framed = torch.cat([
+        signal[s:s + (t - 1) * hp.hop_length + hp.n_fft].float().unfold(
+            0, hp.n_fft, hp.hop_length) for s, t in zip(starts, frames)])
+    return fused_frame_mel_plain(framed * win, hp)
+
+
+def fused_frame_mel_ragged(signal: torch.Tensor, starts, frames,
+                           hp: Config) -> torch.Tensor:
+    """Rows of different lengths in one signal [N] fp32, each already
+    padded, -> their mels packed, [sum(frames), n_mels]: row r's frame t is
+    the samples starts[r] + t * hop to that + n_fft, and is output row
+    frames[0] + ... + frames[r - 1] + t.  An utterance pre-emphasised and
+    reflect-padded by n_fft // 2 on its own, with 1 + L // hop frames, gets
+    the mel ``fused_frame_mel`` gives it alone; no frame past a row's end is
+    computed.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel (one launch) or raise."""
+    if signal.device.type == "cpu":
+        return fused_frame_mel_ragged_plain(signal, starts, frames, hp)
+    if signal.device.type != "cuda":
+        raise ValueError("fused_frame_mel runs on CPU or CUDA tensors, not "
+                         "%s" % signal.device)
+    _check_kernel_config(hp)
+    frame_off = _ragged_frame_offsets(signal, starts, frames, hp)
+    rows = len(frames)
+    signal = signal.float().contiguous()
+    # frame offsets [rows + 1] then sample offsets [rows], one copy from
+    # pinned memory that does not wait for the stream
+    offs = torch.tensor(frame_off + [int(s) for s in starts],
+                        dtype=torch.int64).pin_memory().to(
+                            signal.device, non_blocking=True)
+    m = _kernel_tables(hp, signal.device)
+    out = torch.empty((frame_off[-1], hp.num_mels), dtype=torch.float32,
+                      device=signal.device)
+    lib = _library()
+    _launch_error(lib, lib.frame_mel_ragged(
+        signal.data_ptr(), rows, offs.data_ptr(), offs[rows + 1:].data_ptr(),
+        frame_off[-1], *_table_args(m, hp), out.data_ptr(),
+        torch.cuda.current_stream(signal.device).cuda_stream))
+    fused_frame_mel.launches += 1
+    return out
 
 
 # Kernel launches since the count was last reset (chip_smoke.py reads it).
@@ -225,6 +308,9 @@ def _library() -> ctypes.CDLL:
     lib.frame_mel.argtypes = [p, i, ctypes.c_longlong, i, i, p, i, i, p, p,
                               p, i, i, f, f, f, i, p, p]
     lib.frame_mel.restype = i
+    lib.frame_mel_ragged.argtypes = [p, i, p, p, ctypes.c_longlong, i, p, i,
+                                     i, p, p, p, i, i, f, f, f, i, p, p]
+    lib.frame_mel_ragged.restype = i
     lib.frame_mel_error_string.argtypes = [i]
     lib.frame_mel_error_string.restype = ctypes.c_char_p
     return lib
