@@ -26,7 +26,9 @@ uncaught exception and a non-zero exit):
   4. train_kernel_check: the training kernels against their plain versions
      at the three flagship train shapes (B=16, T_in=192, T_out=448), bf16,
      plus an fp32 case and edge cases (causal Tq=600, Tk=77, a causal D=64
-     T=77, and one 50-key tile held at TOL_L2): mha_forward at dropout 0.1
+     T=77, one 50-key tile held at TOL_L2, and the learnable corpus'
+     lattice of phase 16: T_in 32 with rows of length 0, T_out 64 at B=92
+     and 128 at B=46): mha_forward at dropout 0.1
      (same seed, so the same mask), mha_backward at rate 0 and 0.1 (dq, dk,
      dv; a second call must give the same bits).  Each row: error against
      tolerance, kernel / plain / library ms, bound ms and what binds it,
@@ -185,6 +187,30 @@ uncaught exception and a non-zero exit):
      few_shot_transformer_tts_torch.train`` in-process for 3 steps of the
      flagship default_config() on the kernel-built packed tree (overrides:
      bucket_size and data_warmup_steps only): finite losses.
+  16. converge: the convergence path at the flagship width.  The learnable
+     corpus (``tools/make_learnable_corpus.py``: 660 train and 24 eval
+     rows), then ``python -m few_shot_transformer_tts_torch.train`` as a
+     process on the card (default_config() widths, the data and schedule
+     hparams of converge_r05/hparams_cli.txt: ``converge_run.
+     LEARNABLE_HPARAMS``; en-us and de-de, 1000 steps, a checkpoint every
+     500, written by the async checkpointer), and while it runs the eval
+     service (``python -m few_shot_transformer_tts_torch.eval``) as a
+     second process on the card watching the same model dir, scoring both
+     checkpoints as they land.  Then ``convergence.py`` in-process on
+     ckpt-1000: a deterministic decode on the eager loop and one through
+     the fused ``decoder_frame_step``, their mha_forward and
+     decoder_frame_step launches counted (the kernels line's
+     ``converge_report`` path).  Gates: every [Step N] loss finite; the
+     mse_loss window mean over steps 901-1000 at most CONVERGE_MSE_GATE
+     (2x the JAX package's flagship record at those steps); a finite
+     mse_dtw for en-us and de-de at both checkpoints; no ``.tmp`` file
+     left in the model dir; the eager and fused decodes of the same length
+     on at least CONVERGE_SAME_LENGTH of the samples (each sample's two
+     lengths and the largest mel difference over their common frames
+     printed).  Also printed: s/step (the median of the logged steps
+     100-1000, and apart while the watcher scored a checkpoint and while it
+     did not), the eval service's seconds per checkpoint, the phase's
+     seconds, the card's name and power limit.
 
 Then a {"kernels": [...]} line (six kernels), and last {"ok": true,
 "device": {...}}.
@@ -196,6 +222,7 @@ import contextlib
 import copy
 import functools
 import json
+import logging
 import os
 import re
 import subprocess
@@ -419,21 +446,28 @@ def cold_ms(fn, iters, dirty=False):
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
-def cold_kernel_ms(fn, name, iters=20):
+def cold_kernel_ms(fn, name, iters=20, tries=3):
     """Mean device duration of the kernels whose name holds ``name`` that fn
     launches, the L2 flushed before each call (torch.profiler: the kernels'
-    own time, without the launch around them that CUDA events include)."""
+    own time, without the launch around them that CUDA events include).
+    The profiler may record none of a window's launches: then the window
+    is taken again, up to ``tries`` times, and None means not measured."""
     from torch.profiler import ProfilerActivity, profile
     flush = l2_flusher()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush()
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in device_kernels(prof)[0] if name in e.key]
-    return sum(e.self_device_time_total for e in events) / 1e3 / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in device_kernels(prof)[0]
+                  if name in e.key and e.count]
+        if events:
+            return sum(e.self_device_time_total / e.count
+                       for e in events) / 1e3
+    return None
 
 
 def host_us(fn, n=50):
@@ -777,6 +811,19 @@ def train_kernel_phase(seed):
                           False, [50, 31, 1, 50], 0, cross=True, iters=5)
     check_train_attention("train_encoder_fp32", rng, 16, 192, 192, 512, 8,
                           False, enc_len, 0, dtype=torch.float32, iters=5)
+    # the learnable corpus' lattice (phase converge): T_in 32 (one partial
+    # key tile), T_out 64 / 128 at batch_frame_limit=6000, and the Feeder's
+    # batch-padding rows of length 0
+    text_len = np.concatenate([rng.randint(13, 33, 45), [0]])
+    check_train_attention("learnable_encoder", rng, 92, 32, 32, 512, 8,
+                          False, np.concatenate([text_len, text_len]), 6,
+                          iters=5)
+    check_train_attention("learnable_decoder_causal_t64", rng, 92, 64, 64,
+                          768, 8, True, None, 6, iters=5)
+    check_train_attention("learnable_decoder_causal_t128", rng, 46, 128,
+                          128, 768, 8, True, None, 6, iters=5)
+    check_train_attention("learnable_cross_t128", rng, 46, 128, 32, 768, 8,
+                          False, text_len, 6, cross=True, iters=5)
     return rows
 
 
@@ -849,7 +896,8 @@ def check_layernorm(name, rng, n, c, launches_per_step,
     row["cold_bound_share"] = bound_ms / row["cold_ms"]
     row["cold_dirty_ms"] = cold_ms(kernel, max(iters // 2, 3), dirty=True)
     row["cold_kernel_ms"] = cold_kernel_ms(kernel, "ln_bwd")
-    row["cold_kernel_bound_share"] = bound_ms / row["cold_kernel_ms"]
+    row["cold_kernel_bound_share"] = bound_ms / row["cold_kernel_ms"] \
+        if row["cold_kernel_ms"] else None
     if plan.grid > 1:
         row["timeline_us"] = {"warm": ln_timeline_us(x, gamma, dy, plan),
                               "cold": ln_timeline_us(x, gamma, dy, plan,
@@ -3277,6 +3325,110 @@ def corpus_phase(out_dir, seed, smi):
     return {"counts": counts, "batch": batch}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the convergence path (train CLI, a live eval service, the report)
+# ---------------------------------------------------------------------------
+
+CONVERGE_STEPS = 1000
+CONVERGE_CKPT_INTERVAL = 500
+# mse_loss window mean over steps 901-1000: at most 2x the JAX package's
+# flagship record at the same steps, 0.339 (the mean of the 10-step samples
+# 901-991 in converge_r05_flagship/train_steps_sampled.log)
+CONVERGE_MSE_GATE = 0.678
+# share of the eval samples whose eager and fused decodes of ckpt-1000 stop
+# at one length: at 1000 steps the stop head is not yet confident, so a
+# one-frame flip near its threshold is allowed
+CONVERGE_SAME_LENGTH = 0.75
+
+
+def converge_phase(out_dir, seed, smi):
+    """The learnable corpus (tools/make_learnable_corpus.py, its defaults),
+    1000 steps of ``python -m few_shot_transformer_tts_torch.train`` at the
+    flagship width as a process on the card, the eval service as a second
+    process watching the same model dir (checkpoints 500 and 1000 scored as
+    they land), then ``convergence.py`` in-process on ckpt-1000, its eager
+    and fused decodes counted: the ``converge_report`` path."""
+    import shutil
+    from few_shot_transformer_tts_torch import convergence
+    from few_shot_transformer_tts_torch import converge_run as cr
+    tic = time.perf_counter()
+    root = os.path.join(out_dir, "converge")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # the in-process CLIs of earlier phases left the root logger on files
+    # they have closed, and their Feeder threads still log: from here on
+    # it writes to this phase's log
+    logging.root.handlers = [logging.FileHandler(os.path.join(root,
+                                                              "phase.log"))]
+    corpus = os.path.join(root, "corpus")
+    run = os.path.join(root, "run")
+    models, logs, eval_logs = (os.path.join(run, d) for d in
+                               ("models", "logs", "eval_logs"))
+    cr.write_corpus(corpus)
+    ival = CONVERGE_CKPT_INTERVAL
+    train_s, tail_s = cr.run_segment(
+        cr.train_argv(corpus, models, logs, CONVERGE_STEPS, ival,
+                      cr.LEARNABLE_HPARAMS, "cuda", seed),
+        cr.eval_argv(corpus, models, eval_logs, cr.LEARNABLE_HPARAMS, "cuda",
+                     cr.TRAIN_LANGS, start_step=ival, eval_interval=ival,
+                     scan_interval=5),
+        eval_logs, (ival, CONVERGE_STEPS), cr.TRAIN_LANGS,
+        os.path.join(root, "segment"), train_timeout=600, watch_tail=120)
+    rows = cr.step_lines(logs)
+    busy = cr.eval_intervals(eval_logs)
+    scores = cr.scored(os.path.join(eval_logs, "metrics.jsonl"))
+    tmp_left = sorted(f for f in os.listdir(models) if f.endswith(".tmp"))
+
+    reset_counts()
+    with open(os.path.join(root, "report.log"), "w") as log, \
+            contextlib.redirect_stdout(log):
+        report_tic = time.perf_counter()
+        summary = convergence.main([
+            "--run-dir", run, "--corpus", corpus, "--out-dir",
+            os.path.join(root, "report"), "--ckpt", os.path.join(
+                models, "model.ckpt-%d" % CONVERGE_STEPS)])
+        report_s = time.perf_counter() - report_tic
+    counts = read_counts()
+    agree = summary["decode_agreement"]
+    same = sum(a["eager_frames"] == a["fused_frames"] for a in agree)
+    window = cr.window_mse(rows, 901, CONVERGE_STEPS)
+    row = {
+        "phase": "converge", "nvidia_smi": smi, "steps": len(rows),
+        "train_s": train_s, "watch_tail_s": tail_s, "report_s": report_s,
+        "s_per_step_100_1000": cr.step_seconds(rows, busy, 100,
+                                               CONVERGE_STEPS),
+        "eval_s_per_checkpoint": {s: sec for _, _, sec, s in busy},
+        "mse_window_901_1000": window, "mse_gate": CONVERGE_MSE_GATE,
+        "mse_first_20": cr.window_mse(rows, 1, 20),
+        "eval_mse_dtw": {str(s): v for s, v in sorted(scores.items())},
+        "tmp_left": tmp_left, "report_launches": counts,
+        "decode_dtw_mse_mean": {
+            "eager": summary["ar_decode_dtw_mse_mean"],
+            "fused": summary["fused_decode"]["ar_decode_dtw_mse_mean"]},
+        "best_head_r2_median": float(np.median(
+            [r["r2"] for r in summary["alignment_diagonality"]])),
+        "samples": [[r["name"], a["eager_frames"], a["fused_frames"],
+                     r["target_frames"], a["max_abs_mel_diff"]]
+                    for r, a in zip(summary["alignment_diagonality"],
+                                    agree)],
+        "same_length": [same, len(agree)]}
+    row["seconds"] = time.perf_counter() - tic
+    finite = [np.isfinite(r[3]) and np.isfinite(r[4]) for r in rows]
+    row["ok"] = (
+        [r[1] for r in rows] == list(range(1, CONVERGE_STEPS + 1)) and
+        all(finite) and window <= CONVERGE_MSE_GATE and
+        all(np.isfinite(scores.get(s, {}).get(lang, np.nan))
+            for s in (ival, CONVERGE_STEPS)
+            for lang in cr.TRAIN_LANGS.split(":")) and
+        not tmp_left and len(agree) > 0 and
+        same >= CONVERGE_SAME_LENGTH * len(agree) and
+        counts["mha_forward"] > 0 and counts["decoder_frame_step"] > 0)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("converge phase failed: %s" % row)
+    return {"counts": counts}
+
+
 KERNEL_SOURCES = {
     "mha_forward": ("few_shot_transformer_tts_torch/csrc/mha_fwd.cu",
                     "few_shot_transformer_tts_tpu/ops/"
@@ -3315,7 +3467,7 @@ PHASES = ("kernel_check", "train_kernel_check", "ln_kernel_check",
           "decode_kernel_check",
           "dsp_kernel_check", "adam_kernel_check", "main_path",
           "main_path_fused", "vocode", "cli", "eval_service", "train",
-          "train_fused_adam", "train_cli", "corpus")
+          "train_fused_adam", "train_cli", "corpus", "converge")
 
 
 def main():
@@ -3429,6 +3581,8 @@ def main():
         train_cli_phase(args.out_dir, args.seed)
     if "corpus" in phases:
         out["corpus"] = corpus_phase(args.out_dir, args.seed, smi)
+    if "converge" in phases:
+        out["converge"] = converge_phase(args.out_dir, args.seed, smi)
     if tuple(phases) != PHASES:
         emit({"partial": list(phases)})
         return
@@ -3442,7 +3596,8 @@ def main():
         "train_10_steps": train[name],
         "train_10_steps_fused_adam": out["train_fused_adam"][name],
         "melspectrogram_batch": out["dsp"]["counts"][name],
-        "corpus_mels": out["corpus"]["counts"][name]}
+        "corpus_mels": out["corpus"]["counts"][name],
+        "converge_report": out["converge"]["counts"][name]}
     dec = rows["decoder_causal"]
     emit({"kernels": [
         kernel_line("mha_forward", dec["forward"],

@@ -12,10 +12,12 @@ picks the largest step.  ``load_state`` reads three formats
 ``model.ckpt-<step>`` (``train/flax_msgpack.py``) and its sharded
 ``model.ckpt-<step>.d/shard-<rank>-of-<world>.pkl`` directories
 (``load_state_sharded``), whose train state goes through
-``converter.from_jax_train_state``.  Feeder (data-iterator) state is saved
-per rank as ``feeder_<rank>.pkl`` beside every checkpoint, so every
-checkpoint is a consistent resume point.  Writing the sharded format and
-the JAX package's asynchronous checkpointer are not ported.
+``converter.from_jax_train_state``.  ``AsyncCheckpointer`` writes the same
+file off the step's thread: the state is copied to the host on the caller's
+thread, and the encode, the write and the rename run on a writer thread.
+Feeder (data-iterator) state is saved per rank as ``feeder_<rank>.pkl``
+beside every checkpoint, so every checkpoint is a consistent resume point.
+Writing the sharded format is not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import glob
 import logging
 import os
 import pickle
+import threading
 from typing import Optional
 
 import numpy as np
@@ -54,14 +57,98 @@ def find_ckpt(base_dir: str) -> Optional[str]:
 
 def save_state(model_dir: str, model, optimizer, scheduler, step: int) -> str:
     """Write model.ckpt-<step> in the reference format (atomic rename)."""
+    return write_state(model_dir, {"model": model.state_dict(),
+                                   "optim": optimizer.state_dict(),
+                                   "sched": scheduler.state_dict(),
+                                   "step": int(step)})
+
+
+def write_state(model_dir: str, state: dict) -> str:
+    """``torch.save`` a checkpoint dict to model.ckpt-<state["step"]>
+    through a ``.tmp`` file and an atomic rename."""
     os.makedirs(model_dir, exist_ok=True)
-    path = os.path.join(model_dir, "model.ckpt-%d" % step)
+    path = os.path.join(model_dir, "model.ckpt-%d" % state["step"])
     tmp = path + ".tmp"
-    torch.save({"model": model.state_dict(),
-                "optim": optimizer.state_dict(),
-                "sched": scheduler.state_dict(), "step": int(step)}, tmp)
+    torch.save(state, tmp)
     os.replace(tmp, path)
     return path
+
+
+def host_copy(obj):
+    """``obj`` with every tensor copied to the host (``.detach().to("cpu",
+    copy=True)``) and every dict, list and tuple rebuilt, so nothing in it
+    shares storage with the live state."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return type(obj)((k, host_copy(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(host_copy(v) for v in obj)
+    return obj
+
+
+class AsyncCheckpointer:
+    """Write checkpoints on a background thread (the single-file half of the
+    JAX package's ``AsyncCheckpointer``, its train/checkpoint.py:218-266).
+
+    ``save`` copies the model, optimizer and scheduler state to the host on
+    the caller's thread, the only part that must precede the next optimizer
+    step (which updates the parameters in place), then hands ``torch.save``
+    and the rename to a writer thread.  A later ``save`` or ``wait`` joins
+    the write in flight first; a failed write is logged there, not raised,
+    so a checkpoint that cannot be written does not stop training.
+    """
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def wait(self) -> bool:
+        """Join the write in flight; False if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        err, self._error = self._error, None
+        if err is not None:
+            logging.error("Async checkpoint write failed: %r", err)
+            return False
+        return True
+
+    def _run(self, fn, *args):
+        try:
+            fn(*args)
+        except BaseException as e:   # surfaced on the next wait()
+            self._error = e
+
+    def _start(self, target, *args):
+        self._thread = threading.Thread(target=target, args=args,
+                                        name="ckpt-writer", daemon=True)
+        self._thread.start()
+
+    def save(self, model_dir: str, model, optimizer, scheduler, step: int,
+             sharded: bool = False) -> None:
+        if sharded:
+            raise NotImplementedError(
+                "the sharded checkpoint writer is not ported yet (ROADMAP "
+                "A3, multi-GPU)")
+        state = host_copy({"model": model.state_dict(),
+                           "optim": optimizer.state_dict(),
+                           "sched": scheduler.state_dict(),
+                           "step": int(step)})
+        self.wait()
+        self._start(self._run, write_state, model_dir, state)
+
+    def then(self, fn, *args) -> None:
+        """Run ``fn(*args)`` on the writer's side once the write in flight
+        has landed; skipped when that write failed.  ``wait`` joins it."""
+        writer = self._thread
+
+        def run():
+            if writer is not None:
+                writer.join()
+            if self._error is None:
+                self._run(fn, *args)
+        self._start(run)
 
 
 def checkpoint_format(path: str) -> str:

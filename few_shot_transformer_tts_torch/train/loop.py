@@ -7,17 +7,20 @@ LayerNorm backward kernels on the card), an Adam step (with
 ``hp.use_fused_adam``, through the fused Adam kernel), and the BatchNorm
 running statistics (updated in the forward).  The host loop keeps the
 reference's cadence: windowed sec/step and loss logging, scalars every
-summary_interval, checkpoint + feeder state every checkpoint_interval, inline
-eval, and a state save on a crash or SIGTERM.
+summary_interval, checkpoint + feeder state every checkpoint_interval (the
+checkpoint through ``AsyncCheckpointer``: the host copy on the step's thread,
+the write on a writer thread), inline eval, and a state save on a crash or
+SIGTERM.
 
 As in the JAX package, the losses stay on the device and are fetched every
 ``log_interval`` steps (and at each summary/checkpoint/eval/stop boundary)
 in one transfer, so the host does not wait on the card every step; every
 step still gets its own log line.  Each step's dropout draws come from a
 generator seeded from (seed, step), so a resumed run draws the same masks.
-After each checkpoint the log dir is mirrored to ``<model_dir>/logs``
-(``_mirror_logs``, rsync, best effort).  Multi-process training and the JAX
-package's profiler hooks are not ported.
+After each checkpoint has landed the log dir is mirrored to
+``<model_dir>/logs`` (``_mirror_logs``, rsync, best effort).
+Multi-process training and the JAX package's profiler hooks are not
+ported.
 """
 
 from __future__ import annotations
@@ -283,6 +286,10 @@ def train(args, hp: Config):
             last_host_losses = hl
         pending.clear()
 
+    # torch.save and the disk run on a writer thread; only the copy of the
+    # state to the host runs on the step's thread
+    saver = ckpt_lib.AsyncCheckpointer()
+
     logging.info("Start training run")
     batch = feeder.get_batch()
     dbatch = device_batch(batch, hp, device)
@@ -302,6 +309,7 @@ def train(args, hp: Config):
                 logging.error("Failed, input shape: %s, target shape: %s",
                               str(batch["inputs"].shape),
                               str(batch["mel_targets"].shape))
+                saver.wait()
                 crash_save(logdir, model_dir, rank, feeder, model,
                            optimizer, scheduler, global_step)
                 raise
@@ -330,11 +338,13 @@ def train(args, hp: Config):
 
             if global_step % args.checkpoint_interval == 0 or \
                     stop_requested:
-                ckpt_lib.save_state(model_dir, model, optimizer, scheduler,
-                                    global_step)
+                saver.save(model_dir, model, optimizer, scheduler,
+                           global_step)
                 ckpt_lib.save_feeder_state(logdir, rank, feeder)
                 logging.info("Save checkpoint to %s", model_dir)
-                _mirror_logs(logdir, os.path.join(model_dir, "logs"))
+                # once the file has landed, so no half-written file is copied
+                saver.then(_mirror_logs, logdir,
+                           os.path.join(model_dir, "logs"))
 
             if global_step % args.summary_interval == 0:
                 for key in ["loss", "mse_loss", "l2", "stop_loss",
@@ -362,6 +372,7 @@ def train(args, hp: Config):
                 break
         flush_pending()
     finally:
+        saver.wait()
         signal.signal(signal.SIGTERM, previous_handler)
         writer.close()
     return model, global_step
