@@ -211,6 +211,31 @@ uncaught exception and a non-zero exit):
      100-1000, and apart while the watcher scored a checkpoint and while it
      did not), the eval service's seconds per checkpoint, the phase's
      seconds, the card's name and power limit.
+  17. ddp: data-parallel training (DistributedDataParallel) at the
+     flagship default_config(), bf16, dropout 0, on phase 9's batch.
+     (a) World 1 over NCCL in this process: 10 steps through the
+     DDP-wrapped step in turns with the same steps unwrapped; losses and
+     gradients within TOL_STEP of them, 18/18/32 attention and LayerNorm
+     kernel launches per DDP step, the median sec/step of steps 3-10 of
+     each (DDP's cost at world 1).  (b) World 2 over gloo, both ranks on
+     cuda:0 (one card cannot host two NCCL ranks), two spawned processes:
+     the batch's rows split 7/9, each rank's cropped to its own padded
+     shape, 3 steps with use_fused_adam (one fused_adam_step launch per
+     step on each rank); per-step losses equal on both ranks and within
+     TOL_STEP of a world-1 run over the whole batch, the parameters after
+     3 steps equal on both ranks and, leaf by leaf, within TOL_STEP's
+     gradient bar of that run, or twice the leaf's shift between two
+     world-1 runs that differ only in zero padding where that is wider.  The
+     host ms of a checkpoint at that state: rank 0's share of a world-2
+     sharded save beside a single-file save.  (c) The train CLI under
+     ``torchrun --nproc_per_node 2 ... --multihost --dist_backend gloo``
+     at phase 10's widths: 2 steps with a checkpoint at 2, a resume to 4;
+     model.ckpt-2.d and model.ckpt-4.d hold one shard file per rank, each
+     a proper subset, every element once; feeder_0.pkl and feeder_1.pkl; a
+     world-1 run (in-process, no --multihost) loads model.ckpt-4.d; no
+     .tmp left.  The launches of (a)'s DDP steps and of (b)'s ranks are
+     the kernels line's ``ddp`` path.  A gloo number from one card is not
+     multi-GPU scaling.
 
 Then a {"kernels": [...]} line (six kernels), and last {"ok": true,
 "device": {...}}.
@@ -3429,6 +3454,377 @@ def converge_phase(out_dir, seed, smi):
     return {"counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: data-parallel training (DDP) and the sharded checkpoint writer
+# ---------------------------------------------------------------------------
+
+DDP_ROWS = (7, 9)         # the ranks' rows of the B=16 batch in part (b)
+DDP_STEP_KERNELS = ("mha_forward", "mha_backward", "layer_norm_backward")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def count_delta(before):
+    after = read_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def add_counts(total, delta):
+    for k, v in delta.items():
+        total[k] = total.get(k, 0) + v
+
+
+def ddp_rank_rows(host, rank, multiple=8):
+    """Rank ``rank``'s rows of the global batch (DDP_ROWS), cropped to its
+    own padded shape (its longest lengths rounded up to ``multiple``)."""
+    start = sum(DDP_ROWS[:rank])
+    local = {k: v[start:start + DDP_ROWS[rank]] for k, v in host.items()}
+    t_in = -(-int(local["input_lengths"].max()) // multiple) * multiple
+    t_out = -(-int(local["target_lengths"].max()) // multiple) * multiple
+    local["inputs"] = local["inputs"][:, :t_in]
+    local["mel_targets"] = local["mel_targets"][:, :t_out]
+    return {k: np.ascontiguousarray(v) for k, v in local.items()}
+
+
+def ddp_hparams():
+    return default_config(transformer_dropout_rate=0.0,
+                          decoder_dropout_rate=0.0, use_fused_adam=True)
+
+
+def ddp_gloo_rank(rank, port, seed, steps, out_dir):
+    """Part (b), one rank (a spawned process): its rows of the flagship
+    batch under DDP over gloo, both ranks on cuda:0, ``steps`` steps with
+    use_fused_adam; writes its losses, launches per step and parameters."""
+    from few_shot_transformer_tts_torch.parallel import mesh
+    torch.distributed.init_process_group(
+        "gloo", init_method="tcp://localhost:%d" % port, rank=rank,
+        world_size=len(DDP_ROWS))
+    try:
+        hp = ddp_hparams()
+        model = init_weights_(ByteToMel(hp, device="cuda"), seed)
+        optimizer, scheduler = make_optimizer(model, hp)
+        group = mesh.make_stats_group()
+        ddp = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[0], broadcast_buffers=False)
+        batch = device_batch(ddp_rank_rows(train_batch(hp, seed), rank), hp,
+                             "cuda")
+        losses, per_step = [], []
+        reset_counts()
+        for step in range(steps):
+            before = read_counts()
+            out = train_step(ddp, optimizer, scheduler, batch, hp,
+                             step_generator(seed, step, "cuda", rank), group)
+            torch.cuda.synchronize()
+            losses.append(float(out["loss"]))
+            per_step.append(count_delta(before))
+        torch.save({"losses": losses, "per_step": per_step,
+                    "shape": list(batch["mel_targets"].shape),
+                    "fused": isinstance(optimizer, FusedAdam),
+                    "params": {n: p.detach().cpu() for n, p in
+                               model.named_parameters()}},
+                   os.path.join(out_dir, "rank%d.pt" % rank))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def ddp_world1(hp, host, seed, steps, smi):
+    """Part (a): ``steps`` flagship steps (bf16, dropout 0) through the
+    DDP-wrapped step at world 1 over NCCL, in turns with the same steps on
+    an unwrapped model: losses and gradients held to TOL_STEP, the kernel
+    launches of each DDP step, the median sec/step of steps 3-10 of each."""
+    port = free_port()
+    torch.distributed.init_process_group(
+        "nccl", init_method="tcp://localhost:%d" % port, rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        state = init_weights_(ByteToMel(hp, device="cuda"), seed).state_dict()
+        models = {}
+        for kind in ("plain", "ddp"):
+            model = ByteToMel(hp, device="cuda")
+            model.load_state_dict(state)
+            opt, sched = make_optimizer(model, hp)
+            step_model = torch.nn.parallel.DistributedDataParallel(
+                model, device_ids=[0], broadcast_buffers=False) \
+                if kind == "ddp" else model
+            models[kind] = (model, step_model, opt, sched)
+        batch = device_batch(host, hp, "cuda")
+        counts, times, losses, per_step = {}, {"plain": [], "ddp": []}, \
+            {"plain": [], "ddp": []}, []
+        loss_err, grad_err = [], []
+        for step in range(steps):
+            for kind in ("plain", "ddp"):
+                model, step_model, opt, sched = models[kind]
+                before = read_counts()
+                tic = time.perf_counter()
+                out = train_step(step_model, opt, sched, batch, hp,
+                                 step_generator(seed, step, "cuda"))
+                torch.cuda.synchronize()
+                times[kind].append(time.perf_counter() - tic)
+                losses[kind].append(float(out["loss"]))
+                if kind == "ddp":
+                    delta = count_delta(before)
+                    add_counts(counts, delta)
+                    per_step.append(tuple(delta[k]
+                                          for k in DDP_STEP_KERNELS))
+            grads = [{n: p.grad for n, p in models[k][0].named_parameters()}
+                     for k in ("plain", "ddp")]
+            loss_err.append(abs(losses["ddp"][-1] - losses["plain"][-1]) /
+                            abs(losses["plain"][-1]))
+            grad_err.append(max(leaf_rel_err(grads[1][n], grads[0][n])
+                                for n in grads[0]))
+        del models, state
+    finally:
+        torch.distributed.destroy_process_group()
+    tol = TOL_STEP[torch.bfloat16]
+    sec = {k: float(np.median(v[2:])) for k, v in times.items()}
+    row = {"phase": "ddp", "part": "a_world1_nccl", "nvidia_smi": smi,
+           "steps": steps, "losses_ddp": losses["ddp"],
+           "losses_plain": losses["plain"],
+           "max_loss_rel_err": max(loss_err), "tol_loss": tol["loss"],
+           "max_grad_rel_err": max(grad_err), "tol_grad": tol["grad"],
+           "kernel_calls_per_step": per_step,
+           "sec_per_step_ddp": sec["ddp"], "sec_per_step_plain": sec["plain"],
+           "ddp_over_plain": sec["ddp"] / sec["plain"],
+           "step_s_ddp": times["ddp"], "step_s_plain": times["plain"]}
+    row["ok"] = max(loss_err) <= tol["loss"] and \
+        max(grad_err) <= tol["grad"] and \
+        all(c == (18, 18, 32) for c in per_step) and \
+        all(np.isfinite(losses["ddp"]))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("ddp part (a) failed: %s" % row)
+    return counts
+
+
+def ddp_world2(host, seed, out_dir, smi, steps=3):
+    """Part (b): two ranks over gloo on cuda:0 (one card cannot host two
+    NCCL ranks), rows split 7/9 and cropped per rank, against a world-1 run
+    over the global batch in this process.  Each parameter leaf is held to
+    TOL_STEP's gradient bar, or to twice its shift between two world-1 runs
+    that differ only in zero padding where that is wider: after Adam's
+    first step (lr x the gradient's sign on every element) a zero-init
+    bias whose gradient sums to near zero (the postnet BatchNorm biases)
+    moves by bf16 rounding alone."""
+    import shutil
+    hp = ddp_hparams()
+    root = os.path.join(out_dir, "ddp_gloo")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.multiprocessing.start_processes(
+        ddp_gloo_rank, args=(free_port(), seed, steps, root),
+        nprocs=len(DDP_ROWS), start_method="spawn")
+    ranks = [torch.load(os.path.join(root, "rank%d.pt" % r),
+                        weights_only=True) for r in range(len(DDP_ROWS))]
+    shutil.rmtree(root)
+    runs = {}
+    for kind, batch in (("world1", host), ("padded", pad_time(host, 8))):
+        model = init_weights_(ByteToMel(hp, device="cuda"), seed)
+        optimizer, scheduler = make_optimizer(model, hp)
+        dbatch = device_batch(batch, hp, "cuda")
+        losses = [float(train_step(model, optimizer, scheduler, dbatch, hp,
+                                   step_generator(seed, step, "cuda"))["loss"])
+                  for step in range(steps)]
+        runs[kind] = (losses, {n: p.detach().cpu()
+                               for n, p in model.named_parameters()})
+    want, params = runs["world1"]
+    tol = TOL_STEP[torch.bfloat16]
+    errs = {n: leaf_rel_err(ranks[0]["params"][n], params[n])
+            for n in params}
+    # the same steps over the batch padded by 8 more frames and bytes,
+    # masked out everywhere: a leaf whose bf16 rounding moves it further
+    # than the bar is held to twice that shift (two runs, each that far)
+    shift = {n: leaf_rel_err(runs["padded"][1][n], params[n])
+             for n in params}
+    bars = {n: max(tol["grad"], 2 * shift[n]) for n in params}
+    param_err = max(errs.values())
+    worst = [(n, errs[n], bars[n], params[n].numel(),
+              params[n].norm().item()) for n in sorted(
+                  errs, key=lambda n: -errs[n] / bars[n])[:8]]
+    flat = lambda d: torch.cat([v.flatten().float() for v in d.values()])
+    whole = leaf_rel_err(flat(ranks[0]["params"]), flat(params))
+    ranks_same = all(torch.equal(ranks[0]["params"][n],
+                                 ranks[1]["params"][n]) for n in params)
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip(ranks[0]["losses"], want))
+    counts = {}
+    for r in ranks:
+        for delta in r["per_step"]:
+            add_counts(counts, delta)
+    per_step = [[tuple(d[k] for k in DDP_STEP_KERNELS + ("fused_adam_step",))
+                 for d in r["per_step"]] for r in ranks]
+    row = {"phase": "ddp", "part": "b_world2_gloo_one_card",
+           "nvidia_smi": smi, "rows": list(DDP_ROWS),
+           "rank_shapes": [r["shape"] for r in ranks], "steps": steps,
+           "losses_rank0": ranks[0]["losses"],
+           "losses_rank1": ranks[1]["losses"], "losses_world1": want,
+           "max_loss_rel_err": loss_err, "tol_loss": tol["loss"],
+           "max_param_rel_err": param_err, "tol_param": tol["grad"],
+           "worst_param_leaves": worst, "all_params_rel_err": whole,
+           "widened_leaves": {n: {"err": errs[n], "padding_shift": shift[n]}
+                              for n in params if bars[n] > tol["grad"]},
+           "losses_padded": runs["padded"][0],
+           "params_equal_on_ranks": ranks_same,
+           "kernel_calls_per_step": per_step}
+    row["ok"] = ranks[0]["losses"] == ranks[1]["losses"] and \
+        loss_err <= tol["loss"] and all(errs[n] <= bars[n] for n in errs) \
+        and \
+        ranks_same and all(r["fused"] for r in ranks) and \
+        all(c == (18, 18, 32, 1) for rank in per_step for c in rank)
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("ddp part (b) failed: %s" % row)
+    return counts, model, optimizer, scheduler
+
+
+def pad_time(host, extra):
+    """``host`` with ``extra`` more zero bytes and mel frames past every
+    row's lengths (padding the masks keep out of every term)."""
+    out = dict(host)
+    for key in ("inputs", "mel_targets"):
+        widths = [(0, 0)] * host[key].ndim
+        widths[1] = (0, extra)
+        out[key] = np.pad(host[key], widths)
+    return out
+
+
+def checkpoint_host_ms(model, optimizer, scheduler, out_dir, reps=3):
+    """The host ms a step spends at a checkpoint (``AsyncCheckpointer.save``
+    returns after the host copy; the write runs on its thread): rank 0 of
+    a world-2 sharded save beside a single-file save, the flagship state
+    after part (b)'s steps, in turns."""
+    import shutil
+    from few_shot_transformer_tts_torch.train.checkpoint import \
+        AsyncCheckpointer
+    root = os.path.join(out_dir, "ddp_ckpt")
+    ms = {"sharded": [], "single_file": []}
+    saver = AsyncCheckpointer()
+    for i in range(reps):
+        for kind in ms:
+            shutil.rmtree(root, ignore_errors=True)
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            saver.save(root, model, optimizer, scheduler, i + 1,
+                       sharded=kind == "sharded", rank=0, world=2)
+            ms[kind].append((time.perf_counter() - tic) * 1e3)
+            if not saver.wait():
+                raise RuntimeError("checkpoint write failed")
+    shutil.rmtree(root, ignore_errors=True)
+    return ms
+
+
+def shard_coverage(ckpt_dir):
+    """(file names, each file a proper subset of the leaves, every element
+    written once) of a sharded checkpoint directory."""
+    import pickle
+    names = sorted(os.listdir(ckpt_dir))
+    leaves = []
+    for name in names:
+        with open(os.path.join(ckpt_dir, name), "rb") as f:
+            leaves.append(pickle.load(f)["leaves"])
+    union = set().union(*(set(l) for l in leaves)) if leaves else set()
+    proper = all(0 < len(l) < len(union) for l in leaves)
+    once = sum(len(l) for l in leaves) == len(union)
+    for l in leaves:
+        for key, rec in l.items():
+            covered = np.zeros(rec["shape"], np.int64)
+            for index, _ in rec["shards"]:
+                covered[tuple(index)] += 1
+            once = once and bool(np.all(covered == 1))
+    return names, proper, once
+
+
+def ddp_cli(out_dir, seed, smi):
+    """Part (c): the train CLI under ``torchrun --nproc_per_node 2
+    --multihost --dist_backend gloo`` on the card at phase 10's widths: 2
+    steps with a checkpoint at 2, a resume to 4 at world 2, then a world-1
+    run (in-process, no --multihost) from model.ckpt-4.d."""
+    import shutil
+    from few_shot_transformer_tts_torch.train import cli
+    root = os.path.join(out_dir, "ddp_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    write_corpus(root, seed)
+    models, logs = os.path.join(root, "models"), os.path.join(root, "logs")
+    argv = ["--model-dir", models, "--log-dir", logs, "--data-dir", root,
+            "--checkpoint_interval", "2", "--summary_interval", "2",
+            "--log_interval", "2", "--hparams", CLI_HPARAMS,
+            "--seed", str(seed)]
+    wall = []
+    for steps in (2, 4):
+        tic = time.perf_counter()
+        with open(os.path.join(root, "torchrun_%d.log" % steps), "w") as log:
+            subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc_per_node", "2", "-m",
+                 "few_shot_transformer_tts_torch.train", "--multihost",
+                 "--dist_backend", "gloo", *argv, "--max_steps", str(steps)],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, check=True,
+                timeout=300)
+        wall.append(time.perf_counter() - tic)
+    shards = {s: shard_coverage(os.path.join(models, "model.ckpt-%d.d" % s))
+              for s in (2, 4)}
+    with open(os.path.join(root, "torchrun_4.log")) as f:
+        resumed = "Restore from previous run" in f.read()
+    # the CLI logs to stdout; its lines (and those of the feeder thread
+    # that outlives it) go to a file that stays open
+    log = open(os.path.join(root, "world1.log"), "w")
+    with contextlib.redirect_stdout(log):
+        _, step = cli.main(argv + ["--log-dir", os.path.join(root, "logs1"),
+                                   "--max_steps", "5"])
+    log.flush()
+    with open(os.path.join(root, "world1.log")) as f:
+        world1_loaded = "model.ckpt-4.d, step 4" in f.read()
+    tmp_left = [os.path.join(d, f) for d, _, files in os.walk(root)
+                for f in files if f.endswith(".tmp")]
+    row = {"phase": "ddp", "part": "c_train_cli_torchrun_gloo",
+           "nvidia_smi": smi, "torchrun_wall_s": wall,
+           "shards": {s: {"files": v[0], "proper_subsets": v[1],
+                          "every_element_once": v[2]}
+                      for s, v in shards.items()},
+           "feeder_states": sorted(f for f in os.listdir(logs)
+                                   if f.startswith("feeder_")),
+           "resumed_at_world2": resumed, "world1_loaded_ckpt4": world1_loaded,
+           "world1_last_step": step, "tmp_left": tmp_left}
+    row["ok"] = all(v[0] == ["shard-0-of-2.pkl", "shard-1-of-2.pkl"] and
+                    v[1] and v[2] for v in shards.values()) and \
+        row["feeder_states"] == ["feeder_0.pkl", "feeder_1.pkl"] and \
+        resumed and world1_loaded and step == 5 and not tmp_left
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("ddp part (c) failed: %s" % row)
+
+
+def ddp_phase(out_dir, seed, smi, steps=10):
+    """Data-parallel training: (a) world 1 over NCCL against the unwrapped
+    step, (b) world 2 over gloo on one card against world 1, the host ms
+    of a sharded checkpoint beside a single-file one, (c) the train CLI
+    under torchrun.  Returns the launches of the DDP steps of (a) and of
+    both ranks of (b): the kernels line's ``ddp`` path."""
+    tic = time.perf_counter()
+    hp = default_config(transformer_dropout_rate=0.0,
+                        decoder_dropout_rate=0.0)
+    host = train_batch(hp, seed)
+    counts = ddp_world1(hp, host, seed, steps, smi)
+    counts_b, model, optimizer, scheduler = ddp_world2(host, seed, out_dir,
+                                                       smi)
+    add_counts(counts, counts_b)
+    ckpt_ms = checkpoint_host_ms(model, optimizer, scheduler, out_dir)
+    del model, optimizer, scheduler
+    emit({"phase": "ddp", "part": "checkpoint_host_ms", "nvidia_smi": smi,
+          "state": "flagship default_config, fused Adam after 3 steps",
+          "sharded_rank0_of_2_ms": ckpt_ms["sharded"],
+          "single_file_ms": ckpt_ms["single_file"]})
+    ddp_cli(out_dir, seed, smi)
+    emit({"phase": "ddp", "part": "done", "launches": counts,
+          "seconds": time.perf_counter() - tic})
+    return {"counts": counts}
+
+
 KERNEL_SOURCES = {
     "mha_forward": ("few_shot_transformer_tts_torch/csrc/mha_fwd.cu",
                     "few_shot_transformer_tts_tpu/ops/"
@@ -3467,7 +3863,7 @@ PHASES = ("kernel_check", "train_kernel_check", "ln_kernel_check",
           "decode_kernel_check",
           "dsp_kernel_check", "adam_kernel_check", "main_path",
           "main_path_fused", "vocode", "cli", "eval_service", "train",
-          "train_fused_adam", "train_cli", "corpus", "converge")
+          "train_fused_adam", "train_cli", "corpus", "converge", "ddp")
 
 
 def main():
@@ -3583,6 +3979,8 @@ def main():
         out["corpus"] = corpus_phase(args.out_dir, args.seed, smi)
     if "converge" in phases:
         out["converge"] = converge_phase(args.out_dir, args.seed, smi)
+    if "ddp" in phases:
+        out["ddp"] = ddp_phase(args.out_dir, args.seed, smi)
     if tuple(phases) != PHASES:
         emit({"partial": list(phases)})
         return
@@ -3597,7 +3995,8 @@ def main():
         "train_10_steps_fused_adam": out["train_fused_adam"][name],
         "melspectrogram_batch": out["dsp"]["counts"][name],
         "corpus_mels": out["corpus"]["counts"][name],
-        "converge_report": out["converge"]["counts"][name]}
+        "converge_report": out["converge"]["counts"][name],
+        "ddp": out["ddp"]["counts"][name]}
     dec = rows["decoder_causal"]
     emit({"kernels": [
         kernel_line("mha_forward", dec["forward"],

@@ -16,6 +16,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 NEG_INF = -1e20
 
@@ -69,14 +70,27 @@ def impute(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return x * mask.to(x.dtype)
 
 
+def spans_ranks(group) -> bool:
+    """True when ``group`` is a process group of more than one rank."""
+    return group is not None and dist.get_world_size(group) > 1
+
+
 def mask_reduce(loss: torch.Tensor, lengths: torch.Tensor,
-                per_sample: bool = False) -> torch.Tensor:
+                per_sample: bool = False, group=None) -> torch.Tensor:
     """Length-masked mean of a [B, T] loss (reference transformer/common.py:
-    73-87); per sample, rows of length 0 (lattice padding) divide by 1."""
+    73-87); per sample, rows of length 0 (lattice padding) divide by 1.
+
+    With a ``group`` of more than one rank the denominator is the frame
+    count of every rank's rows (an all-reduce of the integer count, outside
+    autograd), so the masked sums of the ranks add up to the mean over the
+    global batch, as the JAX step's mean over its sharded batch axis."""
     masked = impute(loss, lengths)
     if per_sample:
         return masked.sum(-1) / torch.clamp(lengths, min=1)
-    return masked.sum() / lengths.sum()
+    count = lengths.sum()
+    if spans_ranks(group):
+        dist.all_reduce(count, group=group)
+    return masked.sum() / count
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -24,13 +24,15 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
 from ..config import Config
 from ..utils.device import resolve_device
 from .attention import Linear
-from .common import dropout, impute, length_mask, mask_reduce
+from .common import dropout, impute, length_mask, mask_reduce, \
+    spans_ranks
 from .modules import TransformerDecoder, TransformerEncoder
 
 
@@ -126,6 +128,15 @@ class MaskedBatchNorm(nn.Module):
     outside autograd.  Eval uses the running statistics.  Buffers carry the
     torch names, ``num_batches_tracked`` included, so reference checkpoints
     load.
+
+    With a ``group`` of more than one rank (data-parallel training) the
+    statistics are those of every rank's unmasked frames, as the JAX step's
+    reduction over its sharded batch axis gives them: one all-reduce of
+    (sum of x, frame count), then one of the squared deviations, both
+    through ``torch.distributed.nn.functional.all_reduce`` so that the
+    backward sums the statistics' gradients over the ranks.  The unbiased
+    factor takes the global count, so the running statistics come out the
+    same on every rank.
     """
 
     def __init__(self, features: int, dtype: torch.dtype, eps: float = 1e-5,
@@ -141,15 +152,27 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
 
-    def forward(self, x, lengths, use_running_average: bool = True):
+    def forward(self, x, lengths, use_running_average: bool = True,
+                group=None):
         xf = x.float()
         if use_running_average:
             mean, var = self.running_mean, self.running_var
         else:
             mask = length_mask(lengths, x.shape[1]).float()[..., None]
-            n = torch.clamp(mask.sum(), min=1.0)
-            mean = (xf * mask).sum((0, 1)) / n
-            var = (torch.square(xf - mean) * mask).sum((0, 1)) / n
+            if spans_ranks(group):
+                from torch.distributed.nn.functional import all_reduce
+                sums = all_reduce(torch.cat([(xf * mask).sum((0, 1)),
+                                             mask.sum().reshape(1)]),
+                                  group=group)
+                n = torch.clamp(sums[-1], min=1.0)
+                mean = sums[:-1] / n
+                var = all_reduce(
+                    (torch.square(xf - mean) * mask).sum((0, 1)),
+                    group=group) / n
+            else:
+                n = torch.clamp(mask.sum(), min=1.0)
+                mean = (xf * mask).sum((0, 1)) / n
+                var = (torch.square(xf - mean) * mask).sum((0, 1)) / n
             with torch.no_grad():
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
                 self.running_mean.copy_(self.momentum * self.running_mean +
@@ -176,13 +199,14 @@ class Postnet(nn.Module):
         self.rate = hp.decoder_dropout_rate
 
     def forward(self, inputs, input_lengths, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, group=None):
         x = inputs
         n = len(self.conv_layers)
         for i in range(n):
             x = self.conv_layers[i](impute(x, input_lengths))
             x = self.batchnorm_layers[i](x, input_lengths,
-                                         use_running_average=not train)
+                                         use_running_average=not train,
+                                         group=group)
             if i != n - 1:
                 x = torch.tanh(x)
             x = dropout(x, self.rate, train, generator)
@@ -241,9 +265,11 @@ class ByteToMel(nn.Module):
                 input_spk_ids=None, input_language_vecs=None,
                 train: bool = False, decoder_dropout: Optional[bool] = None,
                 collect_alignments: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, group=None
                 ) -> Dict[str, Any]:
-        """Teacher-forced forward.  All float outputs are fp32."""
+        """Teacher-forced forward.  All float outputs are fp32.  ``group``:
+        the process group whose ranks' rows share the postnet's BatchNorm
+        statistics in training (``MaskedBatchNorm``)."""
         if decoder_dropout is None:
             decoder_dropout = train
         enc = self.encoder(inputs, input_lengths, input_spk_ids,
@@ -253,7 +279,7 @@ class ByteToMel(nn.Module):
             deterministic=not decoder_dropout,
             collect_alignments=collect_alignments, generator=generator)
         mel_res = self.postnet(mel_bef, target_lengths, train=train,
-                               generator=generator)
+                               generator=generator, group=group)
         mel_bef = mel_bef.float()
         return {"mel_bef": mel_bef, "mel_aft": mel_bef + mel_res.float(),
                 "stop_logits": stop_logits.float(),
@@ -380,13 +406,23 @@ def l2_loss(model: nn.Module) -> torch.Tensor:
 
 
 def compute_loss(model: nn.Module, mel_targets, target_lengths, outputs,
-                 hp: Config) -> Dict[str, torch.Tensor]:
-    """The JAX package's ``compute_loss``: loss = bef + aft + L2 + stop."""
+                 hp: Config, group=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``compute_loss``: loss = bef + aft + L2 + stop.
+
+    With a ``group`` of W > 1 ranks (data-parallel training, each rank
+    holding its own rows), every masked mean divides this rank's sum by the
+    frame count of all ranks (``mask_reduce``), and the dict gains
+    ``objective``, what this rank differentiates: W x (its bef + aft +
+    stop terms) + L2 once.  DDP averages the ranks' gradients, so the
+    result is the gradient of the JAX package's loss over the global batch.
+    The other entries are then the global losses, detached: the rank terms
+    all-reduced on the device, with no host sync.  ``aft_losses`` stays
+    this rank's per-sample values."""
     bef = torch.mean(torch.square(outputs["mel_bef"] - mel_targets), dim=-1)
-    bef_loss = mask_reduce(bef, target_lengths)
+    bef_loss = mask_reduce(bef, target_lengths, group=group)
     aft = torch.mean(torch.square(outputs["mel_aft"] - mel_targets), dim=-1)
     aft_loss_samplewise = mask_reduce(aft, target_lengths, per_sample=True)
-    aft_loss = mask_reduce(aft, target_lengths)
+    aft_loss = mask_reduce(aft, target_lengths, group=group)
     l2_reg = hp.reg_weight * l2_loss(model)
 
     t = mel_targets.shape[1]
@@ -396,13 +432,22 @@ def compute_loss(model: nn.Module, mel_targets, target_lengths, outputs,
     # BCE-with-logits, pos_weight=5 (reference tacotron.py:150-151)
     ce = 5.0 * stop_target * F.softplus(-x) + \
         (1.0 - stop_target) * F.softplus(x)
-    ce_loss = mask_reduce(ce, target_lengths)
+    ce_loss = mask_reduce(ce, target_lengths, group=group)
 
+    extra = {}
+    if spans_ranks(group):
+        world = dist.get_world_size(group)
+        extra["objective"] = world * (bef_loss + aft_loss + ce_loss) + l2_reg
+        terms = torch.stack([bef_loss, aft_loss, ce_loss]).detach()
+        dist.all_reduce(terms, group=group)
+        bef_loss, aft_loss, ce_loss = terms.unbind()
+        l2_reg = l2_reg.detach()
+        aft_loss_samplewise = aft_loss_samplewise.detach()
     mse_loss = (bef_loss + aft_loss) / 2
     loss = bef_loss + aft_loss + l2_reg + ce_loss
     return {"loss": loss, "bef_loss": bef_loss, "aft_loss": aft_loss,
             "aft_losses": aft_loss_samplewise, "mse_loss": mse_loss,
-            "l2": l2_reg, "stop_loss": ce_loss}
+            "l2": l2_reg, "stop_loss": ce_loss, **extra}
 
 
 def lr_factor(global_step: int, hp: Config) -> float:

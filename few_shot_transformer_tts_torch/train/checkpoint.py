@@ -12,12 +12,14 @@ picks the largest step.  ``load_state`` reads three formats
 ``model.ckpt-<step>`` (``train/flax_msgpack.py``) and its sharded
 ``model.ckpt-<step>.d/shard-<rank>-of-<world>.pkl`` directories
 (``load_state_sharded``), whose train state goes through
-``converter.from_jax_train_state``.  ``AsyncCheckpointer`` writes the same
-file off the step's thread: the state is copied to the host on the caller's
-thread, and the encode, the write and the rename run on a writer thread.
-Feeder (data-iterator) state is saved per rank as ``feeder_<rank>.pkl``
-beside every checkpoint, so every checkpoint is a consistent resume point.
-Writing the sharded format is not ported.
+``converter.from_jax_train_state``.  Data-parallel runs write that sharded
+format (``snapshot_local_shards``, ``save_state_sharded``): the replicated
+state as the JAX train state tree, each leaf written by the one rank that
+owns it.  ``AsyncCheckpointer`` writes either format off the step's thread:
+the state is copied to the host on the caller's thread, and the encode, the
+write and the rename run on a writer thread.  Feeder (data-iterator) state
+is saved per rank as ``feeder_<rank>.pkl`` beside every checkpoint, so every
+checkpoint is a consistent resume point.
 """
 
 from __future__ import annotations
@@ -27,14 +29,15 @@ import logging
 import os
 import pickle
 import threading
+import zlib
 from typing import Optional
 
 import numpy as np
 import torch
 
 from . import flax_msgpack
-from .converter import (from_jax_train_state, load_reference_checkpoint,
-                        unflatten_dict)
+from .converter import (from_jax_train_state, jax_train_state_from_port,
+                        load_reference_checkpoint, unflatten_dict)
 
 
 def find_ckpt(base_dir: str) -> Optional[str]:
@@ -88,13 +91,14 @@ def host_copy(obj):
 
 
 class AsyncCheckpointer:
-    """Write checkpoints on a background thread (the single-file half of the
-    JAX package's ``AsyncCheckpointer``, its train/checkpoint.py:218-266).
+    """Write checkpoints on a background thread (the JAX package's
+    ``AsyncCheckpointer``, its train/checkpoint.py:218-266).
 
-    ``save`` copies the model, optimizer and scheduler state to the host on
-    the caller's thread, the only part that must precede the next optimizer
-    step (which updates the parameters in place), then hands ``torch.save``
-    and the rename to a writer thread.  A later ``save`` or ``wait`` joins
+    ``save`` copies the model, optimizer and scheduler state (or, sharded,
+    this rank's leaves) to the host on the caller's thread, the only part
+    that must precede the next optimizer step (which updates the parameters
+    in place), then hands ``torch.save`` or the pickle, and the rename, to a
+    writer thread.  A later ``save`` or ``wait`` joins
     the write in flight first; a failed write is logged there, not raised,
     so a checkpoint that cannot be written does not stop training.
     """
@@ -126,11 +130,19 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def save(self, model_dir: str, model, optimizer, scheduler, step: int,
-             sharded: bool = False) -> None:
+             sharded: bool = False, rank: int = 0, world: int = 1) -> None:
+        """Copy the state to the host now and write it on the writer
+        thread: ``model.ckpt-<step>``, or with ``sharded`` this rank's
+        ``shard-<rank>-of-<world>.pkl`` of ``model.ckpt-<step>.d``
+        (``snapshot_local_shards``, ``save_state_sharded``; every rank
+        calls it, the scheduler is not stored: it resumes at the step)."""
         if sharded:
-            raise NotImplementedError(
-                "the sharded checkpoint writer is not ported yet (ROADMAP "
-                "A3, multi-GPU)")
+            shards = snapshot_local_shards(model, optimizer, step, rank,
+                                           world)
+            self.wait()
+            self._start(self._run, save_state_sharded, model_dir, shards,
+                        step, rank, world)
+            return
         state = host_copy({"model": model.state_dict(),
                            "optim": optimizer.state_dict(),
                            "sched": scheduler.state_dict(),
@@ -239,6 +251,64 @@ def load_state_sharded(ckpt_dir: str) -> dict:
         logging.warning("Step=%d, while checkpoint dir says %d",
                         int(tree["step"]), int(step))
     return tree
+
+
+def leaf_owner(key: str, shape, world: int) -> int:
+    """The rank that writes a replicated leaf of the sharded format:
+    ``crc32("<key>|<index>") % world``, with the index the whole leaf's
+    slices as JAX spells them (JAX ``_owner_device`` with one device per
+    process, so the JAX package picks the same rank)."""
+    index = tuple(slice(None) for _ in shape)
+    return zlib.crc32(("%s|%s" % (key, index)).encode()) % world
+
+
+def snapshot_local_shards(model, optimizer, step: int, rank: int,
+                          world: int) -> dict:
+    """This rank's share of the sharded format, on the host: the leaves of
+    the train state tree of ``converter.jax_train_state_from_port`` that
+    ``leaf_owner`` gives this rank, under flax-path keys (``params/...``,
+    ``batch_stats/...``, ``opt_state/0/{count,mu,nu}/...``,
+    ``opt_state/1/count``, ``step``), each whole.  Only those leaves are
+    copied to the host, and each is a copy, so the next step's in-place
+    updates do not reach it."""
+    tree = jax_train_state_from_port(
+        model, optimizer, step,
+        keep=lambda key, shape: leaf_owner(key, shape, world) == rank)
+    shards = {}
+    for path, leaf in _flatten(tree).items():
+        arr = np.array(leaf)
+        shards["/".join(path)] = {
+            "shape": tuple(arr.shape), "dtype": str(arr.dtype),
+            "shards": [(tuple(slice(None) for _ in arr.shape), arr)]}
+    return shards
+
+
+def _flatten(tree: dict, prefix=()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def save_state_sharded(model_dir: str, shards: dict, step: int, rank: int,
+                       world: int) -> str:
+    """Write this rank's ``shard-<rank>-of-<world>.pkl`` into
+    ``model.ckpt-<step>.d/`` (JAX ``save_state_sharded``): the payload
+    ``{rank, world, step, leaves}`` through a ``.tmp`` file and an atomic
+    rename.  ``shards``: from ``snapshot_local_shards``.  Every rank calls
+    it; the directory is complete once each has."""
+    ckpt_dir = os.path.join(model_dir, "model.ckpt-%d.d" % step)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, "shard-%d-of-%d.pkl" % (rank, world))
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump({"rank": rank, "world": world, "step": step,
+                     "leaves": shards}, f, protocol=4)
+    os.replace(tmp, path)
+    return ckpt_dir
 
 
 def save_feeder_state(logdir: str, rank: int, feeder) -> str:

@@ -5,7 +5,17 @@
 
 The flags of the JAX package's root ``train.py`` (reference train.py:251-299)
 plus ``--device`` (default cuda; a missing card raises rather than falling
-back), without ``--multihost``, ``--mirror_interval`` and ``--profile_*``.
+back) and ``--dist_backend``, without ``--mirror_interval`` and
+``--profile_*``.  Data-parallel training runs one process per GPU:
+
+    torchrun --nproc_per_node N -m few_shot_transformer_tts_torch.train \
+        --multihost --model-dir DIR --log-dir DIR --data-dir DIR ...
+
+``--multihost`` joins the process group from torchrun's environment over
+``--dist_backend`` (default nccl on a card, gloo with ``--device cpu``; a
+failed NCCL start raises, and gloo runs on a card only when asked for: it
+is how one card runs two ranks).  Every checkpoint of a run of more than
+one rank is a sharded ``model.ckpt-<step>.d`` directory.
 The data dir holds ``mels.zip``, ``metadata.train.txt``,
 ``metadata.eval.txt``, ``lang_id.json`` and ``spk_id.json``.  Checkpoints
 are written as ``model.ckpt-<step>`` files in the reference torch format; a
@@ -53,6 +63,13 @@ def build_parser():
                         help='weights and dropout draws')
     parser.add_argument('--device', default='cuda',
                         help='torch device (default cuda; "cpu" to run there)')
+    parser.add_argument('--multihost', action='store_true',
+                        help='data-parallel training under torchrun: join '
+                             'its process group, one process per GPU')
+    parser.add_argument('--dist_backend', choices=('nccl', 'gloo'),
+                        default=None,
+                        help='process group backend with --multihost '
+                             '(default nccl on a card, gloo on the CPU)')
     return parser
 
 

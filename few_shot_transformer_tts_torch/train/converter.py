@@ -143,6 +143,29 @@ def unflatten_dict(flat: dict) -> dict:
     return out
 
 
+def _jax_array(kind: str, tensor) -> np.ndarray:
+    """One leaf in the JAX layout: Linear weights transposed, Conv1d
+    weights to [k, in, out], ``pe_scale`` 0-d."""
+    arr = tensor.detach().cpu().numpy() \
+        if isinstance(tensor, torch.Tensor) else np.asarray(tensor)
+    if kind == "pe_scale":
+        return arr.reshape(())
+    if kind == "conv_kernel":
+        return arr.transpose(2, 1, 0)
+    if kind == "kernel":
+        return arr.T
+    return arr
+
+
+def _jax_shape(kind: str, shape) -> tuple:
+    """The shape ``_jax_array`` gives a leaf of ``shape``."""
+    if kind == "pe_scale":
+        return ()
+    if kind in ("conv_kernel", "kernel"):
+        return tuple(shape)[::-1]
+    return tuple(shape)
+
+
 def jax_variables_from_state_dict(state_dict) -> dict:
     """Port (or reference) state dict -> the JAX package's ``{'params',
     'batch_stats'}`` tree of numpy arrays, as its ``convert_torch_state_dict``
@@ -154,15 +177,8 @@ def jax_variables_from_state_dict(state_dict) -> dict:
         kind, path = _jax_leaf(name)
         if kind == "skip":
             continue
-        arr = tensor.detach().cpu().numpy() \
-            if isinstance(tensor, torch.Tensor) else np.asarray(tensor)
-        if kind == "pe_scale":
-            arr = arr.reshape(())
-        elif kind == "conv_kernel":
-            arr = arr.transpose(2, 1, 0)
-        elif kind == "kernel":
-            arr = arr.T
-        (batch_stats if kind == "batch_stat" else params)[path] = arr
+        (batch_stats if kind == "batch_stat" else params)[path] = \
+            _jax_array(kind, tensor)
     out = {"params": unflatten_dict(params)}
     if batch_stats:
         out["batch_stats"] = unflatten_dict(batch_stats)
@@ -202,6 +218,50 @@ def from_jax_train_state(tree: dict, model: nn.Module, optimizer=None):
         optim = optimizer_state_from_jax(adam["mu"], adam["nu"],
                                          int(adam["count"]), model, optimizer)
     return state_dict, optim, int(tree["step"])
+
+
+def jax_train_state_from_port(model: nn.Module, optimizer, step: int,
+                              keep=None) -> dict:
+    """The inverse of ``from_jax_train_state``: the port's model and Adam
+    state as the JAX package's train state tree, ``{step, params,
+    batch_stats, opt_state: {"0": {count, mu, nu}, "1": {count}}}``, numpy
+    leaves in the JAX layout (as ``jax_variables_from_state_dict`` gives
+    them), the counts and the step int32 as the JAX trainer keeps them.  A
+    parameter with no Adam state yet (no step taken) gets zero moments.
+    ``keep(key, shape)``, given a leaf's flax-path key (``params/...``,
+    ``opt_state/0/mu/...``) and JAX shape, selects the leaves converted
+    (default: all); the others are left out of the tree, and never copied
+    to the host."""
+    keep = keep or (lambda key, shape: True)
+    flat = {}
+
+    def add(key, kind, tensor):
+        if keep(key, _jax_shape(kind, tensor.shape)):
+            flat[tuple(key.split("/"))] = _jax_array(kind, tensor)
+
+    for name, tensor in model.state_dict().items():
+        kind, path = _jax_leaf(name)
+        if kind != "skip":
+            group = "batch_stats" if kind == "batch_stat" else "params"
+            add("/".join((group,) + path), kind, tensor)
+    counts = set()
+    for name, p in model.named_parameters():
+        kind, path = _jax_leaf(name)
+        st = optimizer.state.get(p, {})
+        if "step" in st:
+            counts.add(int(st["step"]))
+        for slot, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            add("/".join(("opt_state", "0", slot) + path), kind,
+                st[key] if key in st else torch.zeros_like(p))
+    if len(counts) > 1:
+        raise ValueError("the parameters' Adam step counts differ: %s"
+                         % sorted(counts))
+    count = np.asarray(counts.pop() if counts else 0, np.int32)
+    for key, value in (("step", np.asarray(step, np.int32)),
+                       ("opt_state/0/count", count),
+                       ("opt_state/1/count", count.copy())):
+        add(key, "as_is", value)
+    return unflatten_dict(flat)
 
 
 def load_reference_checkpoint(path: str, model: nn.Module, optimizer=None,

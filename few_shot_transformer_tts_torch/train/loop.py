@@ -19,8 +19,16 @@ step still gets its own log line.  Each step's dropout draws come from a
 generator seeded from (seed, step), so a resumed run draws the same masks.
 After each checkpoint has landed the log dir is mirrored to
 ``<model_dir>/logs`` (``_mirror_logs``, rsync, best effort).
-Multi-process training and the JAX package's profiler hooks are not
-ported.
+
+With ``--multihost`` (one process per GPU under ``torchrun``) the step runs
+under ``DistributedDataParallel`` and keeps the JAX step's semantics over the
+global batch: each rank trains on its own ``[rank::world]`` rows, the
+masked means and the postnet's BatchNorm statistics are all-reduced over
+the ranks (``compute_loss`` and ``MaskedBatchNorm`` with the group of
+``parallel.mesh.make_stats_group``), and every checkpoint is the sharded
+``model.ckpt-<step>.d`` (each rank its own leaves and ``feeder_<rank>.pkl``).
+Rank 0 alone writes the logs, the metrics and the inline eval.  The JAX
+package's profiler hooks are not ported.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from ..config import Config
 from ..frontend.text import language_vec_to_id
 from ..models.tacotron import ByteToMel, compute_loss, init_weights_, \
     lr_factor
+from ..parallel import mesh as mesh_lib
 from ..utils import infolog
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt_lib
@@ -109,10 +118,14 @@ def device_batch(batch: Dict, hp: Config, device) -> Dict[str, torch.Tensor]:
     return dequantize_wire_mels(out, hp)
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, rank: int = 0
+                   ) -> torch.Generator:
     """The dropout generator of one step on ``device``: a pure function of
-    (seed, step)."""
-    hi, lo = np.random.SeedSequence([seed, step]).generate_state(2)
+    (seed, step), with the rank folded in on ranks other than 0, so that
+    data-parallel ranks draw different masks (torch dropout and the
+    attention kernels' Philox seeds both come from it)."""
+    entropy = [seed, step] if rank == 0 else [seed, step, rank]
+    hi, lo = np.random.SeedSequence(entropy).generate_state(2)
     gen = torch.Generator(device)
     gen.manual_seed(((int(hi) << 32) | int(lo)) & (2 ** 63 - 1))
     return gen
@@ -120,20 +133,22 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 def train_step(model: ByteToMel, optimizer, scheduler,
                batch: Dict[str, torch.Tensor], hp: Config,
-               generator: torch.Generator) -> Dict:
+               generator: torch.Generator, group=None) -> Dict:
     """One step: forward (train mode), loss, backward, Adam, schedule.
     Returns the losses as device tensors (no host sync) and ``lr``, the LR
-    this step applied."""
+    this step applied.  ``model`` may be the DDP-wrapped model; ``group``
+    (data parallel at world > 1) makes the losses and BatchNorm statistics
+    those of every rank's rows (``compute_loss``)."""
     model.train()
     outputs = model(batch["inputs"], batch["input_lengths"],
                     batch["mel_targets"], batch["target_lengths"],
                     batch.get("input_spk_ids"),
                     batch.get("input_language_vecs"), train=True,
-                    generator=generator)
+                    generator=generator, group=group)
     losses = compute_loss(model, batch["mel_targets"],
-                          batch["target_lengths"], outputs, hp)
+                          batch["target_lengths"], outputs, hp, group)
     optimizer.zero_grad(set_to_none=True)
-    losses["loss"].backward()
+    losses.pop("objective", losses["loss"]).backward()
     lr = optimizer.param_groups[0]["lr"]
     optimizer.step()
     scheduler.step()
@@ -149,23 +164,32 @@ def train_step(model: ByteToMel, optimizer, scheduler,
 
 def train(args, hp: Config):
     """The training run of ``python -m few_shot_transformer_tts_torch.train``.
-    Returns (model, global_step)."""
+    Returns (model, global_step); the model is the unwrapped module."""
     from ..data import Feeder, FeederEval
     from ..data.metadata import parse_downsample_spec
 
-    device = resolve_device(args.device)
+    if getattr(args, "multihost", False):
+        device = mesh_lib.init_distributed(
+            args.dist_backend or default_backend(args.device), args.device)
+    else:
+        device = resolve_device(args.device)
+    rank, world = mesh_lib.process_index(), mesh_lib.process_count()
+    mesh_lib.check_mesh(hp, world)
     logdir, model_dir, data_dir = args.log_dir, args.model_dir, args.data_dir
-    rank = 0
     time_id = datetime.datetime.now().strftime("%m%d_%H%M")
     os.makedirs(model_dir, exist_ok=True)
     os.makedirs(logdir, exist_ok=True)
-    infolog.set_logger(os.path.join(logdir, "outputs_%s.log" % time_id))
-    writer = infolog.MetricWriter(logdir)
-    with open(os.path.join(logdir, "hparams.json"), "w") as f:
-        json.dump(hp.values(), f, indent=1)
-    with open(os.path.join(logdir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=1, default=str)
-    logging.info("Training on %s", device)
+    writer = None
+    if rank == 0:
+        infolog.set_logger(os.path.join(logdir, "outputs_%s.log" % time_id))
+        writer = infolog.MetricWriter(logdir)
+        with open(os.path.join(logdir, "hparams.json"), "w") as f:
+            json.dump(hp.values(), f, indent=1)
+        with open(os.path.join(logdir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=1, default=str)
+    else:
+        infolog.set_logger(name="rank %d" % rank)
+    logging.info("Training on %s, process %d/%d", device, rank, world)
 
     eval_steps = [int(s) for s in args.eval_steps.split(":")] \
         if args.eval_steps else None
@@ -193,7 +217,7 @@ def train(args, hp: Config):
 
     feeder = Feeder(
         zipfilepath, train_meta, hparams=hp, spk_to_id=spk_to_id,
-        lang_to_id=lang_to_id, rank=rank, world_size=1,
+        lang_to_id=lang_to_id, rank=rank, world_size=world,
         adapt_lang=split_arg(args.adapt_languages),
         adapt_spk=split_arg(args.adapt_speakers),
         train_lang=split_arg(args.training_languages),
@@ -203,12 +227,14 @@ def train(args, hp: Config):
         adapt_samples=split_arg(args.adapt_samples),
         warmup_lang=split_arg(args.warmup_languages),
         warmup_spk=split_arg(args.warmup_speakers))
-    feeder_eval = FeederEval(
-        zipfilepath, eval_meta, hp, spk_to_id=spk_to_id,
-        lang_to_id=lang_to_id, eval_lang=split_arg(args.eval_languages),
-        eval_spk=split_arg(args.eval_speakers),
-        exclude_spk=split_arg(args.exclude_speakers), shuffle=True,
-        keep_order=True, pick_partial=True, single=False)
+    feeder_eval = None
+    if rank == 0:
+        feeder_eval = FeederEval(
+            zipfilepath, eval_meta, hp, spk_to_id=spk_to_id,
+            lang_to_id=lang_to_id, eval_lang=split_arg(args.eval_languages),
+            eval_spk=split_arg(args.eval_speakers),
+            exclude_spk=split_arg(args.exclude_speakers), shuffle=True,
+            keep_order=True, pick_partial=True, single=False)
 
     model = init_weights_(ByteToMel(hp, device=device), args.seed)
     optimizer, scheduler = make_optimizer(model, hp)
@@ -226,6 +252,15 @@ def train(args, hp: Config):
         logging.info("Restore from previous run at %s from %s, step %d",
                      model_dir, latest, global_step)
     ckpt_lib.maybe_load_feeder_state(logdir, rank, feeder)
+
+    # the step's module: DDP over the process group when there is one (its
+    # hooks average the gradients); checkpoints and eval take the model
+    step_model, group = model, None
+    if torch.distributed.is_initialized():
+        group = mesh_lib.make_stats_group()
+        step_model = torch.nn.parallel.DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda"
+            else None, broadcast_buffers=False)
 
     feeder.global_step = global_step
     feeder.start()
@@ -248,6 +283,13 @@ def train(args, hp: Config):
         stop_requested["sig"] = signum
     previous_handler = signal.signal(signal.SIGTERM, _on_term)
 
+    def agree_stop() -> bool:
+        """Whether any rank was asked to stop (an all-reduce of the flag,
+        so that every rank stops and saves at the same step)."""
+        flag = torch.tensor([int(bool(stop_requested))], device=device)
+        torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MAX)
+        return bool(flag.item())
+
     log_interval = args.log_interval or 50
     pending = []
     last_host_losses = None
@@ -256,17 +298,32 @@ def train(args, hp: Config):
     def flush_pending():
         """One device->host transfer for the queued steps' losses; the
         window time is shared out as in the JAX package (a step whose
-        dispatch blocked keeps its excess on its own line)."""
+        dispatch blocked keeps its excess on its own line).  Every rank
+        takes part: at world > 1 rank 0 gathers each rank's per-sample
+        losses and languages for the per-language windows, and logs."""
         nonlocal last_host_losses
         if not pending:
             return
         scalars = torch.stack([
             torch.stack([e["losses"][k].float() for k in _SCALAR_KEYS])
             for e in pending]).cpu().numpy()
+        samples = None
+        if hp.multi_lingual:
+            samples = [[(e["langs"], e["losses"]["aft_losses"].cpu().numpy())]
+                       for e in pending]
+            if world > 1:
+                gathered = [None] * world if rank == 0 else None
+                torch.distributed.gather_object(samples, gathered, dst=0)
+                if rank == 0:
+                    samples = [sum((g[i] for g in gathered), [])
+                               for i in range(len(pending))]
+        if rank != 0:
+            pending.clear()
+            return
         total = time.time() - window_tic
         extras = [max(0.0, e["dispatch_s"] - 1.0) for e in pending]
         base = max(0.0, total - sum(extras)) / len(pending)
-        for e, row, extra in zip(pending, scalars, extras):
+        for i, (e, row, extra) in enumerate(zip(pending, scalars, extras)):
             hl = dict(zip(_SCALAR_KEYS, (float(x) for x in row)))
             hl["lr"] = e["losses"]["lr"]
             dur = base + extra
@@ -279,10 +336,9 @@ def train(args, hp: Config):
                 time_window.average, hl["lr"], hl["loss"], hl["mse_loss"],
                 loss_window.average, audio_s / max(dur, 1e-9))
             if hp.multi_lingual:
-                per_sample = e["losses"]["aft_losses"].cpu().numpy()
-                counts.update(e["langs"], [1] * len(e["langs"]))
-                aft_losses.update(e["langs"],
-                                  list(per_sample[:len(e["langs"])]))
+                for langs, per_sample in samples[i]:
+                    counts.update(langs, [1] * len(langs))
+                    aft_losses.update(langs, list(per_sample[:len(langs)]))
             last_host_losses = hl
         pending.clear()
 
@@ -293,14 +349,18 @@ def train(args, hp: Config):
     logging.info("Start training run")
     batch = feeder.get_batch()
     dbatch = device_batch(batch, hp, device)
+    if world > 1:
+        logging.info("Global batch shape (rows, T_in, T_out) of the first "
+                     "step: %s", mesh_lib.agree_global_shape(batch, device))
     window_tic = time.time()
     try:
         while args.max_steps is None or global_step < args.max_steps:
             try:
                 tic = time.perf_counter()
                 losses = train_step(
-                    model, optimizer, scheduler, dbatch, hp,
-                    step_generator(args.seed, global_step, device))
+                    step_model, optimizer, scheduler, dbatch, hp,
+                    step_generator(args.seed, global_step, device, rank),
+                    group)
                 dispatch_s = time.perf_counter() - tic
                 # the next batch is prepared while the card computes
                 next_batch = feeder.get_batch()
@@ -326,27 +386,35 @@ def train(args, hp: Config):
             pending.append(entry)
             batch, dbatch = next_batch, next_dbatch
 
-            boundary = (global_step % log_interval == 0 or
-                        global_step % args.summary_interval == 0 or
-                        global_step % args.checkpoint_interval == 0 or
-                        (eval_steps and global_step in eval_steps) or
-                        bool(stop_requested) or
-                        (args.max_steps is not None and
-                         global_step >= args.max_steps))
+            # the steps every rank stops at together; at world > 1 a stop
+            # request waits for the next one, where the ranks agree on it
+            common = (global_step % log_interval == 0 or
+                      global_step % args.summary_interval == 0 or
+                      global_step % args.checkpoint_interval == 0 or
+                      (eval_steps and global_step in eval_steps) or
+                      (args.max_steps is not None and
+                       global_step >= args.max_steps))
+            if world == 1:
+                stop = bool(stop_requested)
+            else:
+                stop = bool(common) and agree_stop()
+            boundary = common or stop
             if boundary:
                 flush_pending()
 
-            if global_step % args.checkpoint_interval == 0 or \
-                    stop_requested:
+            if global_step % args.checkpoint_interval == 0 or stop:
                 saver.save(model_dir, model, optimizer, scheduler,
-                           global_step)
+                           global_step, sharded=world > 1, rank=rank,
+                           world=world)
                 ckpt_lib.save_feeder_state(logdir, rank, feeder)
-                logging.info("Save checkpoint to %s", model_dir)
-                # once the file has landed, so no half-written file is copied
-                saver.then(_mirror_logs, logdir,
-                           os.path.join(model_dir, "logs"))
+                if rank == 0:
+                    logging.info("Save checkpoint to %s", model_dir)
+                    # once the file has landed, so no half-written file is
+                    # copied
+                    saver.then(_mirror_logs, logdir,
+                               os.path.join(model_dir, "logs"))
 
-            if global_step % args.summary_interval == 0:
+            if global_step % args.summary_interval == 0 and writer:
                 for key in ["loss", "mse_loss", "l2", "stop_loss",
                             "aft_loss"]:
                     writer.add_scalar("losses/" + key, last_host_losses[key],
@@ -361,12 +429,13 @@ def train(args, hp: Config):
                 (eval_steps and global_step in eval_steps) or
                 (eval_steps is None and
                  global_step % args.checkpoint_interval == 0))
-            if run_inline_eval:
+            if run_inline_eval and feeder_eval is not None:
+                # the unwrapped module: no rank enters a DDP collective alone
                 _inline_eval(model, hp, feeder_eval, logdir, global_step)
             if boundary:
                 # boundary work (saves, eval) stays out of the step windows
                 window_tic = time.time()
-            if stop_requested:
+            if stop:
                 logging.info("Termination signal received; state saved, "
                              "exiting.")
                 break
@@ -374,19 +443,30 @@ def train(args, hp: Config):
     finally:
         saver.wait()
         signal.signal(signal.SIGTERM, previous_handler)
-        writer.close()
+        if writer:
+            writer.close()
     return model, global_step
+
+
+def default_backend(device) -> str:
+    """The process group's backend unless ``--dist_backend`` names one:
+    NCCL for a card, gloo on the CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
 def crash_save(logdir, model_dir, rank, feeder, model, optimizer, scheduler,
                global_step):
     """Persist feeder and model state from the train loop's failure path
-    (reference train.py:175-186); each save is best effort and logs its own
-    failure, so the original error still surfaces."""
+    (reference train.py:175-186, JAX ``crash_save``): every rank its feeder
+    state, rank 0 the single-file checkpoint of the replicated state, with
+    no collective.  Each save is best effort and logs its own failure, so
+    the original error still surfaces."""
     try:
         ckpt_lib.save_feeder_state(logdir, rank, feeder)
     except Exception:
         logging.error("Feeder state save failed:\n%s", traceback.format_exc())
+    if rank != 0:
+        return
     try:
         ckpt_lib.save_state(model_dir, model, optimizer, scheduler,
                             global_step)

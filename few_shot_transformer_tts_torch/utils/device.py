@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -21,4 +23,16 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def rank_device() -> torch.device:
+    """The card of this data-parallel rank, ``cuda:<LOCAL_RANK>`` (0 when
+    ``LOCAL_RANK`` is unset), through ``resolve_device``; raises without a
+    card or when ``LOCAL_RANK`` names a card this host lacks."""
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    device = resolve_device(torch.device("cuda", local_rank))
+    if local_rank >= torch.cuda.device_count():
+        raise RuntimeError("LOCAL_RANK=%d but this host has %d CUDA devices"
+                           % (local_rank, torch.cuda.device_count()))
     return device

@@ -1,5 +1,6 @@
 """The port's ``AsyncCheckpointer`` (train/checkpoint.py), the single-file
-half of the JAX package's (its tests/test_checkpoint_sharded.py:94-117):
+half of the JAX package's (its tests/test_checkpoint_sharded.py:94-117; the
+sharded half is tests/test_torch_checkpoint_sharded.py):
 
 - an async save loads to the tensors ``save_state`` writes, model,
   optimizer, scheduler and step;
@@ -8,7 +9,6 @@ half of the JAX package's (its tests/test_checkpoint_sharded.py:94-117):
 - a second ``save`` joins the write in flight before it starts its own;
 - an optimizer step taken while the write is in flight does not reach the
   file (the host copy is taken on the caller's thread);
-- ``sharded=True`` raises ``NotImplementedError`` naming ROADMAP A3;
 - the train CLI writes every checkpoint through the writer, and a run cut
   at a checkpoint step (a segment boundary) and started again resumes bit
   for bit as from the same state written by ``save_state``, with the LR
@@ -189,14 +189,6 @@ def test_a_step_taken_while_the_write_is_in_flight_does_not_reach_it(
     written = _load(tmp_path / "model.ckpt-1")
     for key in ("model", "optim", "sched"):
         _assert_same(before[key], written[key], key)
-
-
-def test_sharded_raises_naming_a3(state, tmp_path):
-    model, optimizer, scheduler, _ = state
-    with pytest.raises(NotImplementedError, match="A3"):
-        ckpt_lib.AsyncCheckpointer().save(str(tmp_path), model, optimizer,
-                                          scheduler, 1, sharded=True)
-    assert not os.listdir(tmp_path)
 
 
 # ---------------------------------------------------------------------------
