@@ -236,8 +236,55 @@ uncaught exception and a non-zero exit):
      .tmp left.  The launches of (a)'s DDP steps and of (b)'s ranks are
      the kernels line's ``ddp`` path.  A gloo number from one card is not
      multi-GPU scaling.
+  18. remat: hp.remat at the flagship (bf16, phase 9's batch, dropout 0.1,
+     one generator a step): 10 steps with remat off and on from one set of
+     weights; the first step's loss and every gradient within TOL_STEP
+     (the count of leaves bit for bit printed), the peak memory of a
+     steady step (max_memory_allocated, reset between), the median
+     sec/step of steps 3-10, launches a step (18/18/32 off, 36/18/32 on:
+     each attention forward recomputed once); one step of each with
+     use_fused_adam (one fused_adam_step launch each, parameters after it
+     within TOL_STEP's gradient bar).  The remat steps' launches are the
+     kernels line's ``remat`` path.
+  19. runtime: the train CLI at phase 10's widths (prenet 1024, so one
+     leaf takes the fused Adam kernel; use_fused_adam) on a mels.zip
+     corpus: --profile_dir with --profile_step 3 --profile_n_steps 2 (one
+     trace, trace_rank0_steps3-4.json, whose spans are the steps 3 and 4
+     and whose kernels include the attention, LayerNorm and Adam kernels);
+     --mirror_interval 2 and a fault in the optimizer step of step 5,
+     after the kernel leaves took their update (the live state
+     half-updated): the crash checkpoint is the mirror's model.ckpt-4, and
+     a resume from it runs to 6; the corpus' store read through the native
+     reader (no zipfile read).  Then the Feeder at the flagship lattice on
+     a mels.zip of 2000 [448, 80] fp32 mels: its queue depth before each
+     of 20 flagship steps, the waits for a batch, and entries a second
+     read through the store by 1 and 4 threads, native and zipfile, in
+     turns.  The CLI runs' launches are the kernels line's ``runtime``
+     path.
+  20. tp: tensor parallelism at the flagship (bf16, phase 9's batch, fused
+     Adam): the attention kernels on 4 of 8 heads with head offset 4 at
+     the decoder's causal train shape, rate 0.1, bit for bit the 8-head
+     call's heads and within TOL_TRAIN of the plain version; then two
+     spawned ranks over gloo on cuda:0, grid data=1, model=2, 3 steps at
+     dropout 0 and at 0.1 against world 1 in this process: losses equal on
+     both ranks and within TOL_STEP; the first step's gathered gradients
+     within TOL_STEP's gradient bar, leaf by leaf; the gathered parameters
+     after 3 steps, on the elements whose first-step gradient stands clear
+     (4x) of its rounding noise (the farthest that swapping in the plain
+     versions of the attention and LayerNorm kernels, or at dropout 0
+     padding or reversing the batch, moves it in world 1; at least 75% of
+     the elements), within TOL_STEP's gradient bar or twice the farthest a
+     swap moves them, leaf by leaf (ddp (b)'s padding bar over every swap;
+     the rest held through their gradients); every attention call on 4
+     heads at the rank's offset, 18/18/32/1 launches a step a rank; a TP
+     sharded checkpoint (each file a proper
+     subset of the elements, each element once) loaded at world 1 to the
+     gathered parameters, and a step from it.  The ranks' launches are
+     the kernels line's ``tp`` path; gloo through one card is no scaling
+     number.
 
-Then a {"kernels": [...]} line (six kernels), and last {"ok": true,
+The script's seconds, then a {"kernels": [...]} line (six kernels), and last
+{"ok": true,
 "device": {...}}.
 ``--phases`` (comma-separated) runs a subset, for debugging.
 """
@@ -290,7 +337,8 @@ from few_shot_transformer_tts_torch.train.checkpoint import (
 from few_shot_transformer_tts_torch.train.converter import \
     jax_variables_from_state_dict
 from few_shot_transformer_tts_torch.train.loop import (
-    device_batch, make_optimizer, step_generator, train_step)
+    device_batch, make_optimizer, parallel_step_model, step_generator,
+    train_step)
 from few_shot_transformer_tts_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1188,8 +1236,12 @@ def parent_wide(source):
                     "-I", str(cuda_build.CSRC_DIR), "-o", out, source],
                    check=True, capture_output=True, timeout=600)
     lib = ctypes.CDLL(out)
-    mha_ops._bind(lib.mha_wide_fwd, mha_ops._FWD_ARGS)
-    mha_ops._bind(lib.mha_wide_bwd, mha_ops._BWD_ARGS)
+    # the parent's interface: mha_fwd's and mha_bwd's of that commit, before
+    # the head offset
+    mha_ops._bind(lib.mha_wide_fwd, "i i p p p p p p p i i i i ll ll ll ll "
+                  "ll ll f i i i u f p")
+    mha_ops._bind(lib.mha_wide_bwd, "i i p p p p p p p p p p p p i i i i ll "
+                  "ll ll ll ll ll ll ll ll ll f i i i u f p")
     stream = lambda: torch.cuda.current_stream().cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
 
@@ -3498,7 +3550,8 @@ def ddp_hparams():
 
 def ddp_gloo_rank(rank, port, seed, steps, out_dir):
     """Part (b), one rank (a spawned process): its rows of the flagship
-    batch under DDP over gloo, both ranks on cuda:0, ``steps`` steps with
+    batch under DDP over gloo as the train CLI builds it (``make_grid``,
+    ``parallel_step_model``), both ranks on cuda:0, ``steps`` steps with
     use_fused_adam; writes its losses, launches per step and parameters."""
     from few_shot_transformer_tts_torch.parallel import mesh
     torch.distributed.init_process_group(
@@ -3508,9 +3561,9 @@ def ddp_gloo_rank(rank, port, seed, steps, out_dir):
         hp = ddp_hparams()
         model = init_weights_(ByteToMel(hp, device="cuda"), seed)
         optimizer, scheduler = make_optimizer(model, hp)
-        group = mesh.make_stats_group()
-        ddp = torch.nn.parallel.DistributedDataParallel(
-            model, device_ids=[0], broadcast_buffers=False)
+        grid = mesh.make_grid(1)
+        ddp = parallel_step_model(model, grid, torch.device("cuda", 0))
+        group = grid.stats_group
         batch = device_batch(ddp_rank_rows(train_batch(hp, seed), rank), hp,
                              "cuda")
         losses, per_step = [], []
@@ -3825,6 +3878,775 @@ def ddp_phase(out_dir, seed, smi, steps=10):
     return {"counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: remat (activation checkpointing of the attention and FFN calls)
+# ---------------------------------------------------------------------------
+
+REMAT_KERNELS = ("mha_forward", "mha_backward", "layer_norm_backward")
+
+
+def remat_run(hp, state, batch, seed, steps):
+    """``steps`` steps from ``state`` (the first one's generator for every
+    comparison): the first step's loss and gradients, the launches of each
+    step, each step's seconds, and the peak memory of a steady step (reset
+    after the first, which allocates Adam's moments)."""
+    model = ByteToMel(hp, device="cuda")
+    model.load_state_dict(state)
+    optimizer, scheduler = make_optimizer(model, hp)
+    per_step, times, loss, grads, peak = [], [], None, None, None
+    for step in range(steps):
+        if step == 1:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = read_counts()
+        tic = time.perf_counter()
+        out = train_step(model, optimizer, scheduler, batch, hp,
+                         step_generator(seed, step, "cuda"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - tic)
+        per_step.append(count_delta(before))
+        if step == 0:
+            loss = float(out["loss"])
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters()}
+        if step == 1:
+            peak = torch.cuda.max_memory_allocated()
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, optimizer
+    return {"loss": loss, "grads": grads, "per_step": per_step,
+            "times": times, "peak": peak, "params": params}
+
+
+def remat_phase(seed, smi, steps=10):
+    """``hp.remat`` at the flagship (bf16, B=16, T_in 192, T_out 448,
+    dropout 0.1, one generator a step): ``steps`` steps with remat off and
+    on from the same weights; the first step's loss and gradients held to
+    TOL_STEP (and counted where they are bit for bit), the peak memory of a
+    steady step, the median sec/step of steps 3-10, the launches a step
+    (the remat step runs each attention forward twice); then one step of
+    each with ``use_fused_adam``, parameters after it held to TOL_STEP's
+    gradient bar."""
+    tic = time.perf_counter()
+    hp = default_config()
+    batch = device_batch(train_batch(hp, seed), hp, "cuda")
+    state = init_weights_(ByteToMel(hp, device="cuda"), seed).state_dict()
+    counts = dict(NO_LAUNCHES)
+    runs = {}
+    for remat in (False, True):
+        runs[remat] = remat_run(hp.replace(remat=remat), state, batch, seed,
+                                steps)
+        if remat:
+            for delta in runs[remat]["per_step"]:
+                add_counts(counts, delta)
+    off, on = runs[False], runs[True]
+    tol = TOL_STEP[torch.bfloat16]
+    loss_err = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    errs = {n: leaf_rel_err(on["grads"][n], g)
+            for n, g in off["grads"].items()}
+    same = sum(torch.equal(on["grads"][n], g) for n, g in off["grads"].items())
+    max_abs = max(float((on["grads"][n] - g).abs().max())
+                  for n, g in off["grads"].items())
+    fused = {}
+    for remat in (False, True):
+        fused[remat] = remat_run(hp.replace(remat=remat, use_fused_adam=True),
+                                 state, batch, seed, 1)
+        if remat:
+            add_counts(counts, fused[remat]["per_step"][0])
+    fused_errs = {n: leaf_rel_err(fused[True]["params"][n], p)
+                  for n, p in fused[False]["params"].items()}
+    launches = lambda run: [tuple(d[k] for k in REMAT_KERNELS)
+                            for d in run["per_step"]]
+    sec = {k: float(np.median(runs[k]["times"][2:])) for k in runs}
+    row = {"phase": "remat", "nvidia_smi": smi,
+           "config": "default_config (flagship), bf16, dropout 0.1",
+           "B": 16, "T_in": 192, "T_out": 448,
+           "loss_off": off["loss"], "loss_on": on["loss"],
+           "loss_rel_err": loss_err, "tol_loss": tol["loss"],
+           "max_grad_rel_err": max(errs.values()), "tol_grad": tol["grad"],
+           "max_grad_abs_diff": max_abs,
+           "bit_identical_grad_leaves": [same, len(errs)],
+           "peak_mem_gb_off": off["peak"] / 2 ** 30,
+           "peak_mem_gb_on": on["peak"] / 2 ** 30,
+           "peak_mem_drop": 1 - on["peak"] / off["peak"],
+           "sec_per_step_off": sec[False], "sec_per_step_on": sec[True],
+           "on_over_off": sec[True] / sec[False],
+           "step_s_off": off["times"], "step_s_on": on["times"],
+           "launches_per_step_off": launches(off),
+           "launches_per_step_on": launches(on),
+           "fused_adam_launches": [fused[k]["per_step"][0]["fused_adam_step"]
+                                   for k in (False, True)],
+           "fused_adam_max_param_rel_err": max(fused_errs.values()),
+           "seconds": time.perf_counter() - tic}
+    row["ok"] = loss_err <= tol["loss"] and \
+        max(errs.values()) <= tol["grad"] and \
+        all(c == (18, 18, 32) for c in launches(off)) and \
+        all(c == (36, 18, 32) for c in launches(on)) and \
+        on["peak"] < off["peak"] and \
+        row["fused_adam_launches"] == [1, 1] and \
+        max(fused_errs.values()) <= tol["grad"]
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("remat phase failed: %s" % row)
+    return {"counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the runtime (profiler flags, host mirror, native zip reader)
+# ---------------------------------------------------------------------------
+
+# phase 10's widths, with a prenet of 1024: its [1024, 1024] layer is a
+# fused Adam kernel leaf, so a use_fused_adam step launches the kernel
+RUNTIME_HPARAMS = CLI_HPARAMS.replace(
+    "prenet_hidden=64", "prenet_hidden=1024") + ",use_fused_adam=True"
+TRACE_KERNELS = ("mha_fwd", "mha_bwd", "ln_bwd_kernel", "adam_leaves_kernel")
+
+
+def trace_names(path):
+    """(kernel names, step spans) of a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    spans = sorted({e["name"] for e in events
+                    if str(e.get("name", "")).startswith("train_step ")})
+    return kernels, spans
+
+
+def runtime_cli(out_dir, seed, smi):
+    """The train CLI at phase 10's widths on a mels.zip corpus: a profiled
+    window, then a forced crash in the optimizer step with the host mirror
+    every 2 steps, and a resume from the crash checkpoint."""
+    import glob
+    import shutil
+    from few_shot_transformer_tts_torch.data.zipstore import load_zip
+    from few_shot_transformer_tts_torch.ops import fused_adam as adam_ops
+    from few_shot_transformer_tts_torch.train import cli
+    from few_shot_transformer_tts_torch.train.loop import StateUpdateError
+    root = os.path.join(out_dir, "runtime")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    write_corpus(root, seed)
+    trace_dir = os.path.join(root, "trace")
+
+    def argv(run, *extra):
+        return ["--model-dir", os.path.join(root, run, "models"),
+                "--log-dir", os.path.join(root, run, "logs"),
+                "--data-dir", root, "--checkpoint_interval", "100",
+                "--summary_interval", "100", "--log_interval", "2",
+                "--eval_steps", "100", "--hparams", RUNTIME_HPARAMS,
+                "--seed", str(seed), *extra]
+    log = open(os.path.join(root, "runtime_cli.log"), "w")
+    before = read_counts()
+    with contextlib.redirect_stdout(log):
+        cli.main(argv("prof", "--max_steps", "6", "--profile_dir", trace_dir,
+                      "--profile_step", "3", "--profile_n_steps", "2"))
+        # a fault inside the optimizer step of step 5, after the kernel
+        # leaves took their update: the live state is half-updated
+        plain, step_fn, steps = adam_ops.adam_leaf_plain, FusedAdam.step, []
+
+        def counted_step(self, *args, **kwargs):
+            steps.append(1)
+            return step_fn(self, *args, **kwargs)
+
+        def faulty(*args):
+            if len(steps) == 5:
+                raise RuntimeError("fault injected into the optimizer step")
+            return plain(*args)
+        adam_ops.adam_leaf_plain, FusedAdam.step = faulty, counted_step
+        crashed = False
+        try:
+            cli.main(argv("crash", "--max_steps", "8", "--mirror_interval",
+                          "2"))
+        except StateUpdateError:
+            crashed = True
+        finally:
+            adam_ops.adam_leaf_plain, FusedAdam.step = plain, step_fn
+        crash_ckpts = sorted(os.listdir(os.path.join(root, "crash",
+                                                     "models")))
+        _, resumed = cli.main(argv("crash", "--max_steps", "6",
+                                   "--mirror_interval", "2"))
+    log.flush()
+    counts = count_delta(before)
+    traces = sorted(os.listdir(trace_dir)) if os.path.isdir(trace_dir) \
+        else []
+    kernels, spans = trace_names(os.path.join(trace_dir, traces[0])) \
+        if traces else (set(), [])
+    crash_log = "".join(open(p).read() for p in glob.glob(
+        os.path.join(root, "crash", "logs", "outputs_*.log")))
+    store = load_zip(os.path.join(root, "mels.zip"))
+    row = {"phase": "runtime", "part": "train_cli", "nvidia_smi": smi,
+           "hparams": RUNTIME_HPARAMS, "traces": traces, "trace_spans": spans,
+           "trace_kernels": {k: sorted(n for n in kernels if k in n)[:3]
+                             for k in TRACE_KERNELS},
+           "crashed": crashed, "crash_checkpoints": crash_ckpts,
+           "fell_back_to_mirror": "falling back to the host mirror"
+           in crash_log, "resumed_from_4": "step 4" in crash_log and
+           "Restore from previous run" in crash_log,
+           "resumed_to": resumed, "kernel_calls": counts,
+           "store_native": store._native is not None,
+           "store_native_reads": store.native_reads,
+           "store_zipfile_reads": store.zipfile_reads}
+    row["ok"] = traces == ["trace_rank0_steps3-4.json"] and \
+        spans == ["train_step 3", "train_step 4"] and \
+        all(row["trace_kernels"].values()) and crashed and \
+        crash_ckpts == ["model.ckpt-4"] and row["fell_back_to_mirror"] and \
+        row["resumed_from_4"] and resumed == 6 and row["store_native"] and \
+        store.native_reads > 0 and store.zipfile_reads == 0 and \
+        counts["fused_adam_step"] > 0
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("runtime phase (CLI) failed: %s" % row)
+    return counts
+
+
+FEEDER_ENTRIES = 2000
+FEEDER_STEPS = 20
+
+
+def write_flagship_mels(root, seed, hp, n=FEEDER_ENTRIES, frames=448):
+    """A mels.zip of ``n`` flagship-size mels ([448, 80] fp32, stored),
+    metadata rows of 100-180 bytes of text over 2 languages, id maps."""
+    import io
+    import zipfile
+    rng = np.random.RandomState(seed + 7)
+    rows = []
+    mel = np.clip(rng.randn(frames, hp.num_mels), -4, 4).astype(np.float32)
+    buf = io.BytesIO()
+    np.save(buf, mel)
+    with zipfile.ZipFile(os.path.join(root, "mels.zip"), "w") as zf:
+        for i in range(n):
+            lang = ("en-us", "de-de")[i % 2]
+            name = "%s0_%010d" % (lang[:2], i)
+            zf.writestr(name + ".npy", buf.getvalue())
+            text = " ".join(CORPUS_WORDS[j] for j in rng.randint(
+                0, len(CORPUS_WORDS), 40))
+            text = text[:int(rng.randint(100, 181))]
+            rows.append("%s.npy|%d|%s|%s" % (name, frames, text, lang))
+    with open(os.path.join(root, "metadata.train.txt"), "w") as f:
+        f.write("\n".join(rows))
+    return {"en-us": 0, "de-de": 1}, {"en0": 0, "de0": 1}
+
+
+def read_rate(path, names, threads, native):
+    """Entries a second that ``threads`` threads read through one
+    ``ZipStore`` (native reader, or zipfile alone), each its share."""
+    from concurrent.futures import ThreadPoolExecutor
+    from few_shot_transformer_tts_torch.data.zipstore import ZipStore
+    store = ZipStore(path)
+    if not native:
+        store._native = None
+    parts = [names[t::threads] for t in range(threads)]
+    tic = time.perf_counter()
+    with ThreadPoolExecutor(threads) as ex:
+        list(ex.map(lambda part: [store.read_npy(n) for n in part], parts))
+    return len(names) / (time.perf_counter() - tic)
+
+
+def feeder_measurement(out_dir, seed, smi):
+    """The Feeder at the flagship lattice against the flagship train step:
+    its queue depth before each of FEEDER_STEPS steps, the seconds the step
+    waited for a batch, and the read rate of its store, native against
+    zipfile (the archive was just written: the page cache holds it)."""
+    import shutil
+    from few_shot_transformer_tts_torch.data import Feeder
+    root = os.path.join(out_dir, "feeder")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    # no data warm-up: it admits mid-length targets only, not 448 frames
+    hp = default_config(data_warmup_steps=0)
+    tic = time.perf_counter()
+    lang_to_id, spk_to_id = write_flagship_mels(root, seed, hp)
+    write_s = time.perf_counter() - tic
+    path = os.path.join(root, "mels.zip")
+    names = ["%s0_%010d.npy" % (("en", "de")[i % 2], i)
+             for i in range(FEEDER_ENTRIES)]
+    rates = {}
+    for native in (True, False, True, False):
+        for threads in (1, 4):
+            key = "%s_%d_threads" % ("native" if native else "zipfile",
+                                     threads)
+            rates.setdefault(key, []).append(
+                read_rate(path, names, threads, native))
+    feeder = Feeder(path, os.path.join(root, "metadata.train.txt"),
+                    hparams=hp, spk_to_id=spk_to_id, lang_to_id=lang_to_id)
+    model = init_weights_(ByteToMel(hp, device="cuda"), seed)
+    optimizer, scheduler = make_optimizer(model, hp)
+    tic = time.perf_counter()
+    feeder.start()
+    batch = feeder.get_batch()
+    first_s = time.perf_counter() - tic
+    depth, waits, times, shapes = [], [], [], []
+    for step in range(FEEDER_STEPS):
+        dbatch = device_batch(batch, hp, "cuda")
+        shapes.append(list(batch["mel_targets"].shape[:2]))
+        tic = time.perf_counter()
+        train_step(model, optimizer, scheduler, dbatch, hp,
+                   step_generator(seed, step, "cuda"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - tic)
+        depth.append(feeder.queue.qsize())
+        tic = time.perf_counter()
+        batch = feeder.get_batch()
+        waits.append(time.perf_counter() - tic)
+    del model, optimizer
+    row = {"phase": "runtime", "part": "feeder", "nvidia_smi": smi,
+           "entries": FEEDER_ENTRIES, "mel_shape": [448, hp.num_mels],
+           "zip_mb": os.path.getsize(path) / 2 ** 20, "write_s": write_s,
+           "entries_per_s": rates,
+           "native_over_zipfile_4_threads": float(
+               np.median(rates["native_4_threads"]) /
+               np.median(rates["zipfile_4_threads"])),
+           "first_batch_s": first_s, "queue_depth_before_step": depth,
+           "get_batch_wait_s": waits, "step_s": times,
+           "batch_shapes": shapes[:3],
+           "store_native_reads": feeder.zfile.native_reads,
+           "store_zipfile_reads": feeder.zfile.zipfile_reads,
+           "keeps_ahead": min(depth) > 0}
+    row["ok"] = feeder.zfile.native_reads > 0 and \
+        feeder.zfile.zipfile_reads == 0 and all(np.isfinite(times))
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("runtime phase (feeder) failed: %s" % row)
+
+
+def runtime_phase(out_dir, seed, smi):
+    """The rest of the training runtime: the train CLI's profiler flags,
+    host mirror and crash save, its store on the native reader, and the
+    Feeder against the flagship step."""
+    tic = time.perf_counter()
+    counts = runtime_cli(out_dir, seed, smi)
+    feeder_measurement(out_dir, seed, smi)
+    emit({"phase": "runtime", "part": "done", "launches": counts,
+          "seconds": time.perf_counter() - tic})
+    return {"counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 3
+TP_RATES = (0.0, 0.1)
+
+
+def tp_hparams(rate):
+    return default_config(transformer_dropout_rate=rate,
+                          decoder_dropout_rate=rate, use_fused_adam=True)
+
+
+def tp_rank(rank, port, seed, out_dir):
+    """One rank of the ``(data=1, model=2)`` grid (a spawned process, gloo,
+    both ranks on cuda:0): the flagship split over the model axis, TP_STEPS
+    steps at each of TP_RATES with fused Adam; the heads its attention
+    calls ran on; its parameters, and its shard file of a TP checkpoint;
+    the shapes of the split products of its first step at rate 0."""
+    from few_shot_transformer_tts_torch.models import common
+    from few_shot_transformer_tts_torch.parallel import mesh
+    from few_shot_transformer_tts_torch.parallel.sharding_rules import \
+        shard_model_
+    from few_shot_transformer_tts_torch.train import checkpoint as ckpt
+    torch.distributed.init_process_group(
+        "gloo", init_method="tcp://localhost:%d" % port, rank=rank,
+        world_size=2)
+    try:
+        grid = mesh.make_grid(2)
+        # the heads, head offset and width of every attention kernel call
+        seen = []
+        apply = mha_ops.MhaFunction.apply
+
+        def recorded(q, k, v, bias, seed, num_heads, causal, scale,
+                     use_bias, rate, head_offset=0):
+            seen.append((num_heads, head_offset, q.shape[-1]))
+            return apply(q, k, v, bias, seed, num_heads, causal, scale,
+                         use_bias, rate, head_offset)
+        mha_ops.MhaFunction.apply = recorded
+        products = []
+        row_apply = common._PartialProduct.apply
+        col_apply = common._ColumnParallel.apply
+
+        def row_recorded(x, weight):
+            products.append(("row", tuple(x.shape), tuple(weight.shape)))
+            return row_apply(x, weight)
+
+        def col_recorded(x, weight, group):
+            products.append(("column", tuple(x.shape), tuple(weight.shape)))
+            return col_apply(x, weight, group)
+        common._PartialProduct.apply = row_recorded
+        common._ColumnParallel.apply = col_recorded
+        result = {}
+        for rate in TP_RATES:
+            hp = tp_hparams(rate)
+            model = init_weights_(ByteToMel(hp, device="cuda"), seed)
+            whole = shard_model_(model, grid.model_rank, grid.model,
+                                 grid.model_group)
+            optimizer, scheduler = make_optimizer(model, hp)
+            batch = device_batch(train_batch(hp, seed), hp, "cuda")
+            losses, per_step, times, grads = [], [], [], None
+            reset_counts()
+            for step in range(TP_STEPS):
+                before = read_counts()
+                del seen[:]
+                tic = time.perf_counter()
+                out = train_step(model, optimizer, scheduler, batch, hp,
+                                 step_generator(seed, step, "cuda",
+                                                grid.data_rank),
+                                 grid.stats_group)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - tic)
+                losses.append(float(out["loss"]))
+                per_step.append(count_delta(before))
+                if step == 0:
+                    grads = {n: p.grad.detach().cpu()
+                             for n, p in model.named_parameters()}
+                    result.setdefault("products", list(products))
+            result[rate] = {
+                "losses": losses, "per_step": per_step, "step_s": times,
+                "grads": grads,
+                "heads_seen": sorted(set(seen)), "whole": whole,
+                "params": {n: p.detach().cpu() for n, p in
+                           model.named_parameters()},
+                "specs": {n: (p.tp.dim, [(r.start, r.stop)
+                                         for r in p.tp.ranges],
+                              p.tp.full_shape)
+                          for n, p in model.named_parameters()
+                          if hasattr(p, "tp")}}
+            if rate == 0.0:
+                shards = ckpt.snapshot_local_shards(model, optimizer,
+                                                    TP_STEPS, rank, 2, grid)
+                ckpt.save_state_sharded(os.path.join(out_dir, "ckpt"),
+                                        shards, TP_STEPS, rank, 2)
+            del model, optimizer
+        mha_ops.MhaFunction.apply = apply
+        common._PartialProduct.apply = row_apply
+        common._ColumnParallel.apply = col_apply
+        torch.save(result, os.path.join(out_dir, "rank%d.pt" % rank))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tp_gather(ranks, name, key="params"):
+    """The whole parameter ``name`` (or, with ``key="grads"``, its first
+    step's gradient) from the two ranks' parts."""
+    spec = ranks[0]["specs"].get(name)
+    if spec is None:
+        return ranks[0][key][name]
+    dim, _, full = spec
+    out = torch.zeros(full)
+    for r in ranks:
+        at = 0
+        for start, stop in r["specs"][name][1]:
+            index = [slice(None)] * len(full)
+            index[dim] = slice(start, stop)
+            out[tuple(index)] = r[key][name].narrow(dim, at, stop - start)
+            at += stop - start
+    return out
+
+
+def tp_coverage(ckpt_dir):
+    """(file names, each file a proper subset of the state's elements,
+    every element written once) of a TP sharded checkpoint."""
+    import pickle
+    names = sorted(os.listdir(ckpt_dir))
+    files, covered, sizes = [], {}, []
+    for name in names:
+        with open(os.path.join(ckpt_dir, name), "rb") as f:
+            leaves = pickle.load(f)["leaves"]
+        n = 0
+        for key, rec in leaves.items():
+            cov = covered.setdefault(key, np.zeros(rec["shape"], np.int64))
+            for index, data in rec["shards"]:
+                cov[tuple(index)] += 1
+                n += int(np.asarray(data).size)
+        sizes.append(n)
+    total = sum(c.size for c in covered.values())
+    return names, all(0 < n < total for n in sizes), \
+        all(np.all(c == 1) for c in covered.values())
+
+
+def tp_head_offset_check(seed):
+    """The attention kernels on a rank's 4 heads (head offset 4) at the
+    decoder's causal train shape, rate 0.1: bit for bit the same heads of
+    the 8-head call, and within TOL_TRAIN of the plain version with the
+    same offset."""
+    rng = np.random.RandomState(seed + 11)
+    b, t, c, heads = 16, 448, 768, 8
+    q, k, v = (torch.from_numpy(rng.randn(b, t, c).astype(np.float32))
+               .to("cuda", torch.bfloat16) for _ in range(3))
+    do = torch.from_numpy(rng.randn(b, t, c).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    seed_t = torch.tensor([seed + 12345], dtype=torch.int64, device="cuda")
+    scale = 96 ** -0.5
+    o, lse = mha_forward(q, k, v, None, heads, True, scale, False, 0.1,
+                         seed_t)
+    grads = mha_backward(q, k, v, None, seed_t, o, lse, do, heads, True,
+                         scale, False, 0.1)
+    cols = slice(c // 2, c)
+    part = [t_[..., cols].contiguous() for t_ in (q, k, v, do)]
+    o4, lse4 = mha_forward(*part[:3], None, 4, True, scale, False, 0.1,
+                           seed_t, 4)
+    grads4 = mha_backward(*part[:3], None, seed_t, o4, lse4, part[3], 4,
+                          True, scale, False, 0.1, 4)
+    same = torch.equal(o4, o[..., cols]) and \
+        torch.equal(lse4, lse[..., 4:]) and \
+        all(torch.equal(g4, g[..., cols]) for g4, g in zip(grads4, grads))
+    o_plain, _ = mha_forward_plain(*part[:3], None, 4, True, scale, False,
+                                   0.1, seed_t, 4)
+    g_plain = mha_backward_plain(*part[:3], None, seed_t, o4, lse4, part[3],
+                                 4, True, scale, False, 0.1, 4)
+    err = max([rel_err(o4, o_plain)] +
+              [rel_err(g, gp) for g, gp in zip(grads4, g_plain)])
+    return {"same_bits_as_the_8_head_call": same, "max_err": err,
+            "tol": TOL_TRAIN[torch.bfloat16]}
+
+
+def tp_product_ms(products, iters=3):
+    """Device ms of one rank's split products in one TP step, at the shapes
+    its first step recorded (``products``: kind, x's shape, the weight's),
+    without the all-reduces, three ways: the row-parallel product forward
+    and backward, and the column-parallel input gradient (with its weight
+    gradient, the same each way), as (a) bf16 products with an fp32 result
+    (``models/common.py``), (b) fp32 products of inputs upcast from bf16
+    (the form this replaced: no tensor cores) and (c) bf16 products
+    rounded to bf16 before the fp32 sum (one more rounding a partial).
+    Few iterations, so the sleep kernel of ``cuda_ms`` outlasts the host's
+    queueing and the events time the card."""
+    from few_shot_transformer_tts_torch.models import common
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    bf16 = torch.bfloat16
+    cases = []
+    for kind, xs, ws in products:
+        m, k, n = int(np.prod(xs[:-1])), xs[-1], ws[0]
+        x = torch.randn(m, k, device="cuda", generator=gen).to(bf16)
+        w = torch.randn(n, k, device="cuda", generator=gen)
+        g = torch.randn(m, n, device="cuda", generator=gen)
+        cases.append((kind, x.requires_grad_(), w.requires_grad_(),
+                      g if kind == "row" else g.to(bf16)))
+
+    def run(way):
+        for kind, x, w, g in cases:
+            if kind == "column":
+                wb = w.detach().to(bf16)
+                if way == "fp32_out":
+                    common._mm_fp32(g, wb)
+                elif way == "fp32":
+                    torch.mm(g.float(), wb.float()).to(bf16)
+                else:
+                    torch.mm(g, wb).float()
+                torch.mm(g.t(), x.detach())
+                continue
+            if way == "fp32_out":
+                out = common._PartialProduct.apply(x, w)
+            elif way == "fp32":
+                out = F.linear(x.float(), w.to(bf16).float())
+            else:
+                out = F.linear(x, w.to(bf16)).float()
+            out.backward(g)
+    return {way: cuda_ms(lambda: run(way), iters)
+            for way in ("fp32_out", "fp32", "bf16")}
+
+
+def tp_phase(out_dir, seed, smi):
+    """Tensor parallelism at the flagship (bf16, phase 9's batch): two
+    spawned ranks over gloo on cuda:0 (one card cannot host two NCCL
+    ranks), grid data=1, model=2, TP_STEPS steps with fused Adam at dropout
+    0 and 0.1, against world 1 in this process; a TP checkpoint loaded at
+    world 1.  Gloo through the host is no scaling number: no time of it is
+    kept as one."""
+    import shutil
+    tic = time.perf_counter()
+    root = os.path.join(out_dir, "tp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    offset_check = tp_head_offset_check(seed)
+    torch.multiprocessing.start_processes(
+        tp_rank, args=(free_port(), seed, root), nprocs=2,
+        start_method="spawn")
+    ranks = [torch.load(os.path.join(root, "rank%d.pt" % r),
+                        weights_only=False) for r in range(2)]
+    products = ranks[0]["products"]
+    product_ms = tp_product_ms(products)
+    emit({"phase": "tp", "part": "split_products", "nvidia_smi": smi,
+          "products_per_step": len(products),
+          "row": sum(kind == "row" for kind, _, _ in products),
+          "ms_per_step_bf16_fp32_out": product_ms["fp32_out"],
+          "ms_per_step_fp32": product_ms["fp32"],
+          "ms_per_step_bf16_partials": product_ms["bf16"]})
+    host = train_batch(tp_hparams(0.0), seed)
+    state = init_weights_(ByteToMel(tp_hparams(0.0), device="cuda"),
+                          seed).state_dict()
+    reversed_rows = {k: np.ascontiguousarray(v[::-1])
+                     for k, v in host.items()}
+    tol = TOL_STEP[torch.bfloat16]
+    counts = dict(NO_LAUNCHES)
+    rows = {}
+    for rate in TP_RATES:
+        hp = tp_hparams(rate)
+        # the same step computed with other roundings, each drawing this
+        # rate's dropout masks: the plain versions of the attention kernels
+        # (the kernels' own Philox masks), of the LayerNorm backward, and
+        # of both, in their place (train_step_agreement's pairs), and, at
+        # dropout 0 only (both move the masks), the batch padded by 8
+        # masked frames and bytes (ddp (b)'s bar) and its rows reversed
+        plain_ln = hp.replace(use_fused_layernorm=False)
+        runs = [("world1", hp, host, False),
+                ("plain_attention", hp, host, True),
+                ("plain_ln", plain_ln, host, False),
+                ("plain_both", plain_ln, host, True)]
+        if rate == 0.0:
+            runs += [("padded", hp, pad_time(host, 8), False),
+                     ("reversed", hp, reversed_rows, False)]
+        world1 = {}
+        for kind, hp_k, batch, plain_attention in runs:
+            model = ByteToMel(hp_k, device="cuda")
+            model.load_state_dict(state)
+            optimizer, scheduler = make_optimizer(model, hp_k)
+            dbatch = device_batch(batch, hp, "cuda")
+            losses, grads = [], None
+            if plain_attention:
+                mha_ops.mha_forward = mha_forward_plain
+                mha_ops.mha_backward = mha_backward_plain
+            try:
+                for step in range(TP_STEPS):
+                    losses.append(float(train_step(
+                        model, optimizer, scheduler, dbatch, hp_k,
+                        step_generator(seed, step, "cuda"))["loss"]))
+                    if step == 0:
+                        grads = {n: p.grad.detach().cpu()
+                                 for n, p in model.named_parameters()}
+            finally:
+                mha_ops.mha_forward, mha_ops.mha_backward = \
+                    mha_forward, mha_backward
+            world1[kind] = (losses, {n: p.detach().cpu() for n, p in
+                                     model.named_parameters()}, model,
+                            optimizer, scheduler, grads)
+        want, params = world1["world1"][:2]
+        rs = [r[rate] for r in ranks]
+        g1 = world1["world1"][5]
+        swaps = [k for k, _, _, _ in runs[1:]]
+        # each first-step gradient leaf against world 1, to TOL_STEP's bar
+        # or to twice the farthest a swap moves it, where that is wider: a
+        # leaf that one scalar sum cancels (the encoder's pe_scale, see
+        # TOL_STEP) moves by a large share under any other rounding
+        grad_errs = {n: leaf_rel_err(tp_gather(rs, n, "grads"), g)
+                     for n, g in g1.items()}
+        grad_bars = {n: max([tol["grad"]] + [
+            2 * leaf_rel_err(world1[k][5][n], g) for k in swaps])
+            for n, g in g1.items()}
+        # each first-step gradient element's rounding noise: the farthest
+        # those swaps move it.  An element inside it (Adam turns its noise
+        # into a +-lr step) is held through its first-step gradient above,
+        # as tests/test_torch_ddp.py holds the noise floor; the elements
+        # clear of it are held, leaf by leaf, to TOL_STEP's bar or to twice
+        # the farthest a swap moves them after the steps, where that is
+        # wider (ddp (b)'s padding bar, over every swap)
+        clear = {n: g.abs() > 4 * torch.stack(
+            [(world1[k][5][n] - g).abs() for k in swaps]).amax(0)
+            for n, g in g1.items()}
+        gathered = {n: tp_gather(rs, n) for n in params}
+        on_clear = lambda a, n: a[clear[n]] if clear[n].any() else a[:0]
+        errs, bars = {}, {}
+        for n in params:
+            want_n = on_clear(params[n], n)
+            if not want_n.numel():
+                errs[n], bars[n] = 0.0, tol["grad"]
+                continue
+            errs[n] = leaf_rel_err(on_clear(gathered[n], n), want_n)
+            bars[n] = max([tol["grad"]] + [
+                2 * leaf_rel_err(on_clear(world1[k][1][n], n), want_n)
+                for k in swaps])
+        whole_errs = {n: leaf_rel_err(gathered[n], params[n])
+                      for n in params}
+        held = sum(int(c.sum()) for c in clear.values()) / \
+            sum(c.numel() for c in clear.values())
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(rs[0]["losses"], want))
+        for r in rs:
+            for delta in r["per_step"]:
+                add_counts(counts, delta)
+        per_step = [[tuple(d[k] for k in DDP_STEP_KERNELS +
+                           ("fused_adam_step",)) for d in r["per_step"]]
+                    for r in rs]
+        worst = sorted(errs, key=lambda n: errs[n] / bars[n])[-5:]
+        worst_grad = sorted(grad_errs,
+                            key=lambda n: grad_errs[n] / grad_bars[n])[-3:]
+        row = {"phase": "tp", "part": "steps_rate_%g" % rate,
+               "nvidia_smi": smi, "grid": "data=1, model=2 (gloo, cuda:0)",
+               "steps": TP_STEPS, "losses_rank0": rs[0]["losses"],
+               "losses_rank1": rs[1]["losses"], "losses_world1": want,
+               "max_loss_rel_err": loss_err, "tol_loss": tol["loss"],
+               "max_first_grad_rel_err": max(grad_errs.values()),
+               "worst_first_grad_leaf": max(grad_errs, key=grad_errs.get),
+               "tol_grad": tol["grad"],
+               "worst_first_grad_leaves": [(n, grad_errs[n], grad_bars[n])
+                                           for n in worst_grad],
+               "widened_grad_leaves": sum(b > tol["grad"]
+                                          for b in grad_bars.values()),
+               "max_param_rel_err_clear": max(errs.values()),
+               "tol_param": tol["grad"],
+               "share_clear": held, "min_share_clear": 0.75,
+               "worst_param_leaves_clear": [(n, errs[n], bars[n])
+                                            for n in worst],
+               "widened_leaves": sum(bars[n] > tol["grad"] for n in bars),
+               "worst_param_leaves_whole": sorted(
+                   whole_errs.items(), key=lambda kv: kv[1])[-5:],
+               "losses_plain_both": world1["plain_both"][0],
+               "split_leaves": len(rs[0]["specs"]),
+               "layers_left_whole": rs[0]["whole"],
+               "heads_seen": [r["heads_seen"] for r in rs],
+               "kernel_calls_per_step": per_step,
+               "gloo_step_s_rank0": rs[0]["step_s"]}
+        # the numbers, and apart from them the split the ranks ran
+        row["numerics_ok"] = rs[0]["losses"] == rs[1]["losses"] and \
+            loss_err <= tol["loss"] and \
+            all(grad_errs[n] <= grad_bars[n] for n in grad_errs) and \
+            all(errs[n] <= bars[n] for n in errs) and held >= 0.75
+        row["layout_ok"] = not rs[0]["whole"] and \
+            all({h for h, _, _ in r["heads_seen"]} == {4} and
+                {o for _, o, _ in r["heads_seen"]} == {4 * m}
+                for m, r in enumerate(rs)) and \
+            all(c == (18, 18, 32, 1) for rank in per_step for c in rank)
+        row["ok"] = row["numerics_ok"] and row["layout_ok"]
+        rows[rate] = row
+        emit(row)
+        if rate == 0.0:
+            _, _, model, optimizer, scheduler, _ = world1["world1"]
+            ckpt_dir = os.path.join(root, "ckpt", "model.ckpt-%d.d"
+                                    % TP_STEPS)
+            names, proper, once = tp_coverage(ckpt_dir)
+            step = load_state(ckpt_dir, model, optimizer, scheduler)
+            loaded = all(torch.equal(p.detach().cpu(), tp_gather(rs, n))
+                         for n, p in model.named_parameters())
+            next_loss = float(train_step(
+                model, optimizer, scheduler, device_batch(host, hp, "cuda"),
+                hp, step_generator(seed, step, "cuda"))["loss"])
+            ck = {"phase": "tp", "part": "checkpoint", "nvidia_smi": smi,
+                  "files": names, "proper_subsets": proper,
+                  "every_element_once": once, "world1_loaded_step": step,
+                  "world1_params_equal_gathered": loaded,
+                  "world1_next_loss": next_loss}
+            ck["ok"] = names == ["shard-0-of-2.pkl", "shard-1-of-2.pkl"] \
+                and proper and once and step == TP_STEPS and loaded and \
+                bool(np.isfinite(next_loss))
+            emit(ck)
+            if not ck["ok"]:
+                raise AssertionError("tp checkpoint failed: %s" % ck)
+        del world1
+    failed = [row for row in rows.values() if not row["ok"]]
+    if failed:
+        raise AssertionError("tp phase failed: %s" % failed)
+    done = {"phase": "tp", "part": "head_offset_kernels", "nvidia_smi": smi,
+            **offset_check}
+    done["ok"] = offset_check["same_bits_as_the_8_head_call"] and \
+        offset_check["max_err"] <= offset_check["tol"]
+    emit(done)
+    if not done["ok"]:
+        raise AssertionError("tp head offset check failed: %s" % done)
+    shutil.rmtree(root)
+    emit({"phase": "tp", "part": "done", "launches": counts,
+          "seconds": time.perf_counter() - tic})
+    return {"counts": counts}
+
+
 KERNEL_SOURCES = {
     "mha_forward": ("few_shot_transformer_tts_torch/csrc/mha_fwd.cu",
                     "few_shot_transformer_tts_tpu/ops/"
@@ -3863,7 +4685,8 @@ PHASES = ("kernel_check", "train_kernel_check", "ln_kernel_check",
           "decode_kernel_check",
           "dsp_kernel_check", "adam_kernel_check", "main_path",
           "main_path_fused", "vocode", "cli", "eval_service", "train",
-          "train_fused_adam", "train_cli", "corpus", "converge", "ddp")
+          "train_fused_adam", "train_cli", "corpus", "converge", "ddp",
+          "remat", "runtime", "tp")
 
 
 def main():
@@ -3890,6 +4713,7 @@ def main():
                              "one at the two train shapes in one call "
                              "(A/B)")
     args = parser.parse_args()
+    script_tic = time.perf_counter()
     phases = PHASES if args.phases == "all" else args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
     if unknown:
@@ -3981,6 +4805,13 @@ def main():
         out["converge"] = converge_phase(args.out_dir, args.seed, smi)
     if "ddp" in phases:
         out["ddp"] = ddp_phase(args.out_dir, args.seed, smi)
+    if "remat" in phases:
+        out["remat"] = remat_phase(args.seed, smi)
+    if "runtime" in phases:
+        out["runtime"] = runtime_phase(args.out_dir, args.seed, smi)
+    if "tp" in phases:
+        out["tp"] = tp_phase(args.out_dir, args.seed, smi)
+    emit({"phase": "script", "seconds": time.perf_counter() - script_tic})
     if tuple(phases) != PHASES:
         emit({"partial": list(phases)})
         return
@@ -3996,7 +4827,10 @@ def main():
         "melspectrogram_batch": out["dsp"]["counts"][name],
         "corpus_mels": out["corpus"]["counts"][name],
         "converge_report": out["converge"]["counts"][name],
-        "ddp": out["ddp"]["counts"][name]}
+        "ddp": out["ddp"]["counts"][name],
+        "remat": out["remat"]["counts"][name],
+        "runtime": out["runtime"]["counts"][name],
+        "tp": out["tp"]["counts"][name]}
     dec = rows["decoder_causal"]
     emit({"kernels": [
         kernel_line("mha_forward", dec["forward"],

@@ -3,9 +3,11 @@
 An own copy of ``few_shot_transformer_tts_tpu/config.py``: the same field
 names, defaults and ``k=v,...`` override grammar (ints, floats, bools, strings
 and ``[a,b,c]`` lists), so one ``--hparams`` string configures both packages.
-Fields that select TPU-only machinery (mesh axes, the PRNG implementation,
-remat) are kept so such strings still parse; the port reads only the ones
-its code paths use.
+Fields that select TPU-only machinery (the PRNG implementation,
+``conv_as_matmul``) are kept so such strings still parse; the port reads
+only the ones its code paths use.  ``remat`` recomputes the attention and
+FFN activations in the backward (``models/modules.py``); the mesh axes
+shape the ``(data, model)`` grid of ranks (``parallel/mesh.py``).
 
 ``use_pallas_attention`` selects the hand-written CUDA attention kernels
 (``ops/mha.py``, forward and backward) for the full-sequence attention path

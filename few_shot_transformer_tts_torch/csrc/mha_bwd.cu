@@ -102,7 +102,7 @@ struct Args {
   void* dk;
   void* dv;
   float* delta;
-  int tq, tk, num_heads;
+  int tq, tk, num_heads, head_offset;
   long long q_sb, q_sr, k_sb, k_sr, v_sb, v_sr, o_sb, o_sr, do_sb, do_sr;
   float scale;
   int causal, use_bias;
@@ -251,7 +251,8 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dq_tc(Args a) {
     if (it + 1 < n_tiles) load_tile(k0 + kT, st ^ 1);
     unsigned drop = 0;  // the tile's mask, drawn while the copies fly
     if (kDropout)
-      drop = philox::tile_drop_bits<kJ>(sd, k0, row0, h, b, a.threshold, t);
+      drop = philox::tile_drop_bits<kJ>(sd, k0, row0, h + a.head_offset, b,
+                                        a.threshold, t);
     if (it + 1 < n_tiles) {
       tc::cp_async_wait<1>();
     } else {
@@ -437,8 +438,8 @@ __global__ void __launch_bounds__(kTcThreads) mha_bwd_dkdv_tc(Args a) {
     if (it + 1 < n_tiles) load_tile(q0 + kT, st ^ 1);
     unsigned drop = 0;  // the tile's mask, drawn while the copies fly
     if (kDropout)
-      drop = philox::tile_drop_bits_t<kJ>(sd, key0, q0, h, b, a.threshold, g,
-                                          t);
+      drop = philox::tile_drop_bits_t<kJ>(sd, key0, q0, h + a.head_offset, b,
+                                          a.threshold, g, t);
     if (it + 1 < n_tiles) {
       tc::cp_async_wait<1>();
     } else {
@@ -694,8 +695,8 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dq_fp32(Args a) {
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
     if (kDropout)
       bits = philox::dropout_bits(sd, (k0 >> 2) + (lane & 7),
-                                  q0 + warp * kRowsPerWarp + (lane >> 3), h,
-                                  b);
+                                  q0 + warp * kRowsPerWarp + (lane >> 3),
+                                  h + a.head_offset, b);
 
     const int kj = k0 + lane;
     float s[kRowsPerWarp], dg[kRowsPerWarp];
@@ -823,7 +824,8 @@ __global__ void __launch_bounds__(kWarps * 32) mha_bwd_dkdv_fp32(Args a) {
 
     const int qj = q0 + lane;
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-    if (kDropout) bits = philox::dropout_bits(sd, key0 >> 2, qj, h, b);
+    if (kDropout)
+      bits = philox::dropout_bits(sd, key0 >> 2, qj, h + a.head_offset, b);
 
     float s[kRowsPerWarp], dg[kRowsPerWarp];
 #pragma unroll
@@ -931,13 +933,15 @@ cudaError_t dispatch(int dtype, bool dropout, const Args& a, int batch,
 // use_bias); seed one int64 on the device (read only when dropout != 0);
 // lse [B, Tq, H] float32 from the forward.  dq [B, Tq, H*D], dk and dv
 // [B, Tk, H*D] in the input type and delta [B, Tq, H] float32 (workspace)
-// are contiguous outputs.  inv_keep is float(1 / (1 - rate)).
+// are contiguous outputs.  inv_keep is float(1 / (1 - rate)); head_offset
+// as in mha_fwd.
 extern "C" int mha_bwd(int dtype, int head_dim, const void* q, const void* k,
                        const void* v, const void* bias, const void* seed,
                        const void* o, const void* lse, const void* dout,
                        void* dq, void* dk, void* dv, void* delta, int batch,
-                       int tq, int tk, int num_heads, long long q_sb,
-                       long long q_sr, long long k_sb, long long k_sr,
+                       int tq, int tk, int num_heads, int head_offset,
+                       long long q_sb, long long q_sr, long long k_sb,
+                       long long k_sr,
                        long long v_sb, long long v_sr, long long o_sb,
                        long long o_sr, long long do_sb, long long do_sr,
                        float scale, int causal, int use_bias, int dropout,
@@ -946,8 +950,9 @@ extern "C" int mha_bwd(int dtype, int head_dim, const void* q, const void* k,
   Args a{q,  k,  v,  static_cast<const float*>(bias),
          static_cast<const long long*>(seed), o, static_cast<const float*>(lse),
          dout, dq, dk, dv, static_cast<float*>(delta),
-         tq, tk, num_heads, q_sb, q_sr, k_sb, k_sr, v_sb, v_sr, o_sb, o_sr,
-         do_sb, do_sr, scale, causal, use_bias, threshold, inv_keep};
+         tq, tk, num_heads, head_offset, q_sb, q_sr, k_sb, k_sr, v_sb, v_sr,
+         o_sb, o_sr, do_sb, do_sr, scale, causal, use_bias, threshold,
+         inv_keep};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim != HEAD_DIM) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<HEAD_DIM>(dtype, dropout != 0, a, batch, s);

@@ -100,7 +100,7 @@ struct FwdArgs {
   const long long* seed;
   void* o;
   float* lse;
-  int tq, tk, num_heads;
+  int tq, tk, num_heads, head_offset;
   long long q_sb, q_sr, k_sb, k_sr, v_sb, v_sr;
   float scale;
   int causal, use_bias;
@@ -198,7 +198,8 @@ __global__ void __launch_bounds__(kTcThreads) mha_fwd_tc(FwdArgs a) {
     if (it + 1 < n_tiles) load_tile(k0 + kTcKeys, st ^ 1);
     unsigned drop = 0;  // the tile's mask, drawn while the copies fly
     if (kDropout)
-      drop = philox::tile_drop_bits(sd, k0, row0, h, b, a.threshold, t);
+      drop = philox::tile_drop_bits(sd, k0, row0, h + a.head_offset, b,
+                                    a.threshold, t);
     if (it + 1 < n_tiles) {
       tc::cp_async_wait<1>();
     } else {
@@ -389,6 +390,7 @@ mha_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ bias,
              const long long* __restrict__ seed, float* __restrict__ o,
              float* __restrict__ lse, int tq, int tk, int num_heads,
+             int head_offset,
              long long q_sb, long long q_sr, long long k_sb, long long k_sr,
              long long v_sb, long long v_sr, float scale, int causal,
              int use_bias, unsigned threshold, float keep_prob) {
@@ -460,8 +462,8 @@ mha_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
     if (kDropout)
       bits = philox::dropout_bits(sd, (k0 >> 2) + (lane & 7),
-                                  q0 + warp * kRowsPerWarp + (lane >> 3), h,
-                                  b);
+                                  q0 + warp * kRowsPerWarp + (lane >> 3),
+                                  h + head_offset, b);
 
     const int kj = k0 + lane;
     const bool valid = kj < tk;
@@ -549,7 +551,8 @@ cudaError_t launch_fp32(const FwdArgs& a, int batch, cudaStream_t stream) {
       <<<grid, kWarps * 32, fwd_fp32_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.bias, a.seed,
-      static_cast<float*>(a.o), a.lse, a.tq, a.tk, a.num_heads, a.q_sb,
+      static_cast<float*>(a.o), a.lse, a.tq, a.tk, a.num_heads,
+      a.head_offset, a.q_sb,
       a.q_sr, a.k_sb, a.k_sr, a.v_sb, a.v_sr, a.scale, a.causal, a.use_bias,
       a.threshold, a.keep_prob);
   return cudaGetLastError();
@@ -574,12 +577,15 @@ cudaError_t dispatch(int dtype, bool dropout, const FwdArgs& a, int batch,
 // bytes.  bias is [B, Tk] float32 (ignored unless use_bias).  seed points at
 // one int64 on the device (read only when dropout != 0); a key is kept when
 // its Philox word is >= threshold, and keep_prob = 1 - rate scales the
-// output.  o is [B, Tq, H*D] in the input type, lse [B, Tq, H] float32,
-// both contiguous.
+// output.  head_offset is added to the head of the Philox counter: a
+// tensor-parallel rank that holds heads [head_offset, head_offset + H) of a
+// layer draws that layer's mask of those heads.  o is [B, Tq, H*D] in the
+// input type, lse [B, Tq, H] float32, both contiguous.
 extern "C" int mha_fwd(int dtype, int head_dim, const void* q, const void* k,
                        const void* v, const void* bias, const void* seed,
                        void* o, void* lse, int batch, int tq, int tk,
-                       int num_heads, long long q_sb, long long q_sr,
+                       int num_heads, int head_offset, long long q_sb,
+                       long long q_sr,
                        long long k_sb, long long k_sr, long long v_sb,
                        long long v_sr, float scale, int causal, int use_bias,
                        int dropout, unsigned threshold, float keep_prob,
@@ -587,7 +593,8 @@ extern "C" int mha_fwd(int dtype, int head_dim, const void* q, const void* k,
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const FwdArgs a{q, k, v, static_cast<const float*>(bias),
                   static_cast<const long long*>(seed), o,
-                  static_cast<float*>(lse), tq, tk, num_heads, q_sb, q_sr,
+                  static_cast<float*>(lse), tq, tk, num_heads,
+                  head_offset, q_sb, q_sr,
                   k_sb, k_sr, v_sb, v_sr, scale, causal, use_bias, threshold,
                   keep_prob};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

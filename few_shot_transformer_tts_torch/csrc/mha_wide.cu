@@ -122,7 +122,7 @@ struct Args {
   void* dv;
   float* delta;
   void* ws;    // bf16 backward: round(g), then round(ds * scale)
-  int tq, tk, num_heads, head_dim;
+  int tq, tk, num_heads, head_offset, head_dim;
   int n_col, col_w;  // output slices per head, and their width
   long long q_sb, q_sr, k_sb, k_sr, v_sb, v_sr, o_sb, o_sr, do_sb, do_sr;
   float scale;
@@ -423,7 +423,8 @@ __global__ void __launch_bounds__(kTcThreads) wide_scores_tc(Args a) {
   if (kDropout) {  // the tile's mask, drawn once for every output slice
     unsigned* words = reinterpret_cast<unsigned*>(tmax + n_all * kRows);
     words[tile * kTcThreads + tid] = philox::tile_drop_bits(
-        static_cast<unsigned long long>(*a.seed), k0, row0, h, b,
+        static_cast<unsigned long long>(*a.seed), k0, row0,
+        h + a.head_offset, b,
         a.threshold, t);
   }
 #pragma unroll
@@ -616,7 +617,8 @@ __global__ void __launch_bounds__(kTcThreads) wide_ds_tc(Args a) {
   unsigned drop = 0;
   if (kDropout)
     drop = philox::tile_drop_bits(static_cast<unsigned long long>(*a.seed),
-                                  k0, row0, h, b, a.threshold, t);
+                                  k0, row0, h + a.head_offset, b,
+                                  a.threshold, t);
 
   float s[8][4], dp[8][4];
   tile_products<true>(a, b, h, q0, k0, ring, bias_s, s, dp);
@@ -902,8 +904,8 @@ __global__ void __launch_bounds__(kWarps * 32) mha_wide_fwd_kernel(Args a) {
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
     if (kDropout)
       bits = philox::dropout_bits(sd, (k0 >> 2) + (lane & 7),
-                                  q0 + warp * kRowsPerWarp + (lane >> 3), h,
-                                  b);
+                                  q0 + warp * kRowsPerWarp + (lane >> 3),
+                                  h + a.head_offset, b);
     const int kj = k0 + lane;
     const bool valid = kj < tk;
 #pragma unroll
@@ -1039,8 +1041,8 @@ __global__ void __launch_bounds__(kWarps * 32) mha_wide_dq_kernel(Args a) {
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
     if (kDropout)
       bits = philox::dropout_bits(sd, (k0 >> 2) + (lane & 7),
-                                  q0 + warp * kRowsPerWarp + (lane >> 3), h,
-                                  b);
+                                  q0 + warp * kRowsPerWarp + (lane >> 3),
+                                  h + a.head_offset, b);
     const int kj = k0 + lane;
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
@@ -1162,7 +1164,8 @@ __global__ void __launch_bounds__(kWarps * 32) mha_wide_dkdv_kernel(Args a) {
 
     const int qj = q0 + lane;
     uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-    if (kDropout) bits = philox::dropout_bits(sd, key0 >> 2, qj, h, b);
+    if (kDropout)
+      bits = philox::dropout_bits(sd, key0 >> 2, qj, h + a.head_offset, b);
 #pragma unroll
     for (int i = 0; i < kRowsPerWarp; ++i) {
       const int kj = key0 + i;
@@ -1328,7 +1331,8 @@ extern "C" int mha_wide_fwd(int dtype, int head_dim, const void* q,
                             const void* k, const void* v, const void* bias,
                             const void* seed, void* o, void* lse,
                             void* workspace, int batch, int tq, int tk,
-                            int num_heads, long long q_sb, long long q_sr,
+                            int num_heads, int head_offset, long long q_sb,
+                            long long q_sr,
                             long long k_sb, long long k_sr, long long v_sb,
                             long long v_sr, float scale, int causal,
                             int use_bias, int dropout, unsigned threshold,
@@ -1347,6 +1351,7 @@ extern "C" int mha_wide_fwd(int dtype, int head_dim, const void* q,
   a.tq = tq;
   a.tk = tk;
   a.num_heads = num_heads;
+  a.head_offset = head_offset;
   a.head_dim = head_dim;
   set_slices(&a, dtype);
   a.q_sb = q_sb;
@@ -1377,7 +1382,8 @@ extern "C" int mha_wide_bwd(int dtype, int head_dim, const void* q,
                             const void* seed, const void* o, const void* lse,
                             const void* dout, void* dq, void* dk, void* dv,
                             void* delta, void* workspace, int batch, int tq,
-                            int tk, int num_heads, long long q_sb,
+                            int tk, int num_heads, int head_offset,
+                            long long q_sb,
                             long long q_sr, long long k_sb, long long k_sr,
                             long long v_sb, long long v_sr, long long o_sb,
                             long long o_sr, long long do_sb, long long do_sr,
@@ -1403,6 +1409,7 @@ extern "C" int mha_wide_bwd(int dtype, int head_dim, const void* q,
   a.tq = tq;
   a.tk = tk;
   a.num_heads = num_heads;
+  a.head_offset = head_offset;
   a.head_dim = head_dim;
   set_slices(&a, dtype);
   a.q_sb = q_sb;

@@ -5,7 +5,9 @@
 // mask is a pure function of (seed, b, h, q, k): the backward regenerates it
 // and no [B, H, Tq, Tk] mask reaches memory.  A key is kept when its 32-bit
 // word is >= threshold = uint32(rate * 2^32), the threshold rule of the TPU
-// kernel's `_mask_from_bits`.
+// kernel's `_mask_from_bits`.  The head is the layer's: a kernel passes its
+// block's head plus the call's head_offset, so a tensor-parallel rank that
+// holds some of a layer's heads draws the layer's mask of those heads.
 //
 // few_shot_transformer_tts_torch/ops/mha.py `dropout_keep_mask` computes the
 // same bits in plain PyTorch; the two must change together.

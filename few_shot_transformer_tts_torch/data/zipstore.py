@@ -1,11 +1,14 @@
 """Mel store access: zip archives of .npy files.
 
-Own copy of ``few_shot_transformer_tts_tpu/data/zipstore.py`` that reads with
-Python's ``zipfile`` only (the JAX package's native mmap reader is not
-ported).  The packed dataset format is the reference's ``mels.zip``
-(reference corpora/process_corpus.py:296-348: one ``<name>.npy`` per
-utterance), so reference-packed data loads unchanged.  A process-wide handle
-cache mirrors reference dataloader.py:16-22.
+Own copy of ``few_shot_transformer_tts_tpu/data/zipstore.py``.  The packed
+dataset format is the reference's ``mels.zip`` (reference
+corpora/process_corpus.py:296-348: ZIP_STORED entries, one ``<name>.npy``
+per utterance), so reference-packed data loads unchanged.  Stored entries
+are read through the native reader (``native/zipreader.py``: positioned
+``pread``, no lock, no GIL while it reads); deflated and missing entries,
+and every entry on a host where the reader cannot be built (logged once),
+through Python's ``zipfile`` under one lock.  A process-wide handle cache
+mirrors reference dataloader.py:16-22.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import zipfile
 from typing import Dict
 
 import numpy as np
+
+from ..native import zipreader
 
 _zip_cache: Dict[str, "ZipStore"] = {}
 _cache_lock = threading.Lock()
@@ -29,20 +34,37 @@ def load_zip(filename: str) -> "ZipStore":
 
 
 class ZipStore:
-    """Thread-safe reader of npy entries from a zip archive."""
+    """Thread-safe reader of npy entries from a zip archive.
+
+    ``native_reads`` counts the reads the native reader served (updated
+    without a lock, so a check of it is a lower bound under contention);
+    ``zipfile_reads`` those that went through ``zipfile`` (exact)."""
 
     def __init__(self, filename: str):
         self.filename = filename
         self._zf = zipfile.ZipFile(filename)
         self._lock = threading.Lock()
+        self._native = None
+        if zipreader.library() is not None:
+            self._native = zipreader.NativeZipReader(filename)
+        self.native_reads = 0
+        self.zipfile_reads = 0
 
     def namelist(self):
         return self._zf.namelist()
 
-    def read_npy(self, name: str) -> np.ndarray:
+    def read_bytes(self, name: str) -> bytes:
+        if self._native is not None:
+            buf = self._native.read(name)
+            if buf is not None:
+                self.native_reads += 1
+                return buf
         with self._lock:
-            data = self._zf.read(name)
-        return np.load(io.BytesIO(data))
+            self.zipfile_reads += 1
+            return self._zf.read(name)
+
+    def read_npy(self, name: str) -> np.ndarray:
+        return np.load(io.BytesIO(self.read_bytes(name)))
 
     # reference-compatible alias (dataloader.py:413-416)
     def load(self, npy_name: str) -> np.ndarray:

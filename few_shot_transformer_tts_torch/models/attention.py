@@ -16,6 +16,16 @@ On the kernel path, active dropout runs inside the kernel at
 ``dropout_rate``, with a seed drawn per call from the step's generator (the
 JAX package's ``make_rng("dropout")``).
 
+Under tensor parallelism (``parallel/sharding_rules.py:shard_model_``) a
+layer holds heads ``[head_offset, head_offset + local_heads)`` of
+``num_heads``: the q, k and v columns of those heads and the matching rows
+of ``output_transform``, over the model group ``tp_group``: the projections
+are ``column_parallel`` and the output ``row_parallel``
+(``models/common.py``); the kernel counts its Philox heads from
+``head_offset`` and the plain path keeps its heads' slice of the whole
+layer's dropout mask, so a rank drops what the whole layer would.  The
+incremental path runs on whole layers only.
+
 Score and context products upcast their (compute-dtype) operands to fp32, so
 a bf16 run multiplies exactly and accumulates in fp32, as bf16 matmuls with
 fp32 accumulation do.  For the same reason the KV caches and the precomputed
@@ -31,7 +41,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.mha import MhaFunction, draw_seed
-from .common import combine_heads, dropout, split_heads
+from .common import (column_parallel, combine_heads, dropout, row_parallel,
+                     split_heads)
 
 _KERNEL_MAX_KEYS = 2048
 
@@ -60,6 +71,9 @@ class MultiheadAttention(nn.Module):
         self.num_heads = num_heads
         self.dropout_rate = dropout_rate
         self.use_kernel = use_kernel
+        self.local_heads = num_heads
+        self.head_offset = 0
+        self.tp_group = None
         if is_self_attention:
             self.qkv_transform = Linear(query_size, key_size * 2 + value_size,
                                         bias=False)
@@ -79,14 +93,18 @@ class MultiheadAttention(nn.Module):
 
         Returns (outputs [B, Tq, C], align [B, H, Tm, Tq] or None).
         """
-        ks, vs = self.key_size, self.value_size
+        heads, group = self.local_heads, self.tp_group
+        ks = self.key_size // self.num_heads * heads
+        vs = self.value_size // self.num_heads * heads
         if self.is_self_attention:
-            q, k, v = self.qkv_transform(queries).split([ks, ks, vs], -1)
+            q, k, v = column_parallel(self.qkv_transform, queries,
+                                      group).split([ks, ks, vs], -1)
         else:
-            q = self.q_transform(queries)
-            k, v = self.kv_transform(memories).split([ks, vs], -1)
+            q = column_parallel(self.q_transform, queries, group)
+            k, v = column_parallel(self.kv_transform, memories,
+                                   group).split([ks, vs], -1)
 
-        depth = ks // self.num_heads
+        depth = ks // heads
         active = not deterministic and self.dropout_rate > 0.0
         if self.use_kernel and not need_align and q.is_cuda and \
                 k.shape[1] <= _KERNEL_MAX_KEYS:
@@ -97,28 +115,40 @@ class MultiheadAttention(nn.Module):
                 else None
             rate = self.dropout_rate if active else 0.0
             seed = draw_seed(generator, q.device) if rate > 0.0 else None
-            x = MhaFunction.apply(q, k, v, bias_vec, seed, self.num_heads,
-                                  causal, depth ** -0.5, use_bias, rate)
-            return self.output_transform(x), None
+            x = MhaFunction.apply(q, k, v, bias_vec, seed, heads, causal,
+                                  depth ** -0.5, use_bias, rate,
+                                  self.head_offset)
+            return row_parallel(self.output_transform, x, group), None
 
         dtype = q.dtype
-        q = split_heads(q, self.num_heads) * (depth ** -0.5)
-        k = split_heads(k, self.num_heads)
-        v = split_heads(v, self.num_heads)
+        q = split_heads(q, heads) * (depth ** -0.5)
+        k = split_heads(k, heads)
+        v = split_heads(v, heads)
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
         if bias is not None:
             logits = logits + bias
         weights = torch.softmax(logits, dim=-1)
         align = weights.transpose(2, 3) if need_align else None
-        weights = dropout(weights, self.dropout_rate, active, generator)
+        shard = None if heads == self.num_heads else \
+            (1, self.head_offset, self.num_heads)
+        weights = dropout(weights, self.dropout_rate, active, generator,
+                          shard)
         ctx = torch.matmul(weights.to(dtype).float(), v.float())
-        return self.output_transform(combine_heads(ctx.to(dtype))), align
+        return row_parallel(self.output_transform,
+                            combine_heads(ctx.to(dtype)), group), align
 
     # ---------------- incremental path (AR decode) --------------------------
+
+    def _check_whole(self):
+        if self.local_heads != self.num_heads:
+            raise ValueError("the incremental attention path runs on whole "
+                             "layers, not on a tensor-parallel rank's %d of "
+                             "%d heads" % (self.local_heads, self.num_heads))
 
     def project_kv(self, memories: torch.Tensor):
         """Split-head cross-attention K/V of the encoder memory, computed once
         per utterance: (k [B, H, Tm, Dk], v [B, H, Tm, Dv]) in fp32 storage."""
+        self._check_whole()
         k, v = self.kv_transform(memories).split(
             [self.key_size, self.value_size], -1)
         return (split_heads(k, self.num_heads).float(),
@@ -135,6 +165,7 @@ class MultiheadAttention(nn.Module):
         package masks the rest of the capacity at -1e20, whose weights are
         exactly 0).  Returns (out [B, C], align [B, H, step+1]).
         """
+        self._check_whole()
         ks, vs = self.key_size, self.value_size
         q, k, v = self.qkv_transform(x).split([ks, ks, vs], -1)
         b = x.shape[0]

@@ -7,16 +7,28 @@ min/max timescale 1/1e4 and a log increment over ``channels//2 - 1`` steps;
 attention biases are additive with -1e20; ``impute`` zeroes time steps at or
 beyond each sequence length.  Dropout draws its mask from an explicit
 ``torch.Generator`` so a decode is reproducible under one seed.
+
+Tensor parallelism (``parallel/sharding_rules.py``) runs the Megatron pair
+over a model group: ``column_parallel`` (the same input on every rank, the
+input's gradient summed over the group) and ``row_parallel`` (the product
+summed over the group).  Each rank's partial product, and each partial
+input gradient, is kept in fp32 and rounded to the compute type once,
+after the sum, as the whole layer's product is rounded once: a bf16 step
+then differs from one device's by the order of fp32 sums only.  On a card
+the partials are bf16 products on the tensor cores with an fp32 result
+(``torch.mm``'s ``out_dtype``), which holds the exact products of the
+bf16 inputs as an fp32 product of them would.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.nn import functional as F
 
 NEG_INF = -1e20
 
@@ -106,12 +118,116 @@ def combine_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float, active: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            shard: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``generator`` (flax
-    nn.Dropout semantics: keep with probability 1-rate, scale by 1/keep)."""
+    nn.Dropout semantics: keep with probability 1-rate, scale by 1/keep).
+
+    ``shard`` = (dim, start, full): ``x`` is the slice ``[start, start +
+    x.shape[dim])`` along ``dim`` of a tensor ``full`` long there (a
+    tensor-parallel rank's heads or hidden columns).  The mask of the whole
+    tensor is drawn and sliced, so the rank keeps the mask the whole layer
+    would draw, and the generator advances as it would."""
     if not active or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if shard is not None:
+        shape[shard[0]] = shard[2]
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if shard is not None:
+        mask = mask.narrow(shard[0], shard[1], x.shape[shard[0]])
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum of fp32 ``x`` over the group forward; the gradient passes
+    unchanged backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        total = x.reshape(-1).clone()
+        dist.all_reduce(total, group=group)
+        return total.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _mm_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) with an fp32 result: on a card a half-precision
+    product on the tensor cores with fp32 output, else an fp32 product."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1])
+
+
+class _ColumnParallel(torch.autograd.Function):
+    """``x @ weight^T`` in x's type over this rank's output columns; the
+    gradient of x is this rank's fp32 partial, summed over the group, then
+    rounded once to x's type."""
+
+    @staticmethod
+    def forward(ctx, x, weight, group):
+        w = weight.to(x.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.group = group
+        return F.linear(x, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        dx = _mm_fp32(_rows(grad), w)
+        dist.all_reduce(dx, group=ctx.group)
+        dw = torch.mm(_rows(grad).t(), _rows(x))
+        return dx.reshape(x.shape).to(x.dtype), dw.float(), None
+
+
+class _PartialProduct(torch.autograd.Function):
+    """``x @ weight^T`` as an fp32 partial of x's type's inputs; backward
+    in x's type, as the whole layer's product would run it."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        w = weight.to(x.dtype)
+        ctx.save_for_backward(x, w)
+        out = _mm_fp32(_rows(x), w.t())
+        return out.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        grad = _rows(grad).to(x.dtype)
+        dx = torch.mm(grad, w).reshape(x.shape)
+        dw = torch.mm(grad.t(), _rows(x))
+        return dx, dw.float()
+
+
+def model_parallel_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """fp32 ``x`` summed over ``group`` (the gradient passes unchanged), or
+    ``x`` without a group of more than one rank."""
+    return _SumOverGroup.apply(x, group) if spans_ranks(group) else x
+
+
+def column_parallel(linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``linear(x)`` (bias-free) of a layer whose weight holds this rank's
+    output columns; the ranks of ``group`` hold the same ``x``, and each
+    contributes its part of x's gradient."""
+    if not spans_ranks(group):
+        return linear(x)
+    return _ColumnParallel.apply(x, linear.weight, group)
+
+
+def row_parallel(linear, x: torch.Tensor, group) -> torch.Tensor:
+    """``linear(x)`` (bias-free) of a layer whose weight holds the rows of
+    this rank's input columns ``x``: the product summed over ``group``."""
+    if not spans_ranks(group):
+        return linear(x)
+    partial = _PartialProduct.apply(x, linear.weight)
+    return model_parallel_sum(partial, group).to(x.dtype)

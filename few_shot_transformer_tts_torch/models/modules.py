@@ -8,6 +8,13 @@ A learnable ``pe_scale`` multiplies the sinusoidal PE.  The decoder imputes
 its targets and shifts them right by a zero frame before the PE, and exposes
 the incremental path (``init_cache`` / ``precompute_memory`` /
 ``decode_step``) of the AR synthesizer.
+
+With ``hp.remat`` the teacher-forced path runs each attention and each FFN
+call under activation checkpointing (``remat_call``), as the JAX package
+wraps ``MultiheadAttention`` and ``FFNLayer`` in ``nn.remat``: parameter
+names, the state dict and the results are unchanged; the layers'
+activations are recomputed in the backward instead of kept.  The norms
+before them stay outside the recomputed region.
 """
 
 from __future__ import annotations
@@ -16,18 +23,25 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..ops.layernorm import LayerNorm
 from .attention import Linear, MultiheadAttention
 from .common import (
-    causal_bias, dropout, impute, length_mask, padding_bias,
-    sinusoid_position_encoding,
+    causal_bias, column_parallel, dropout, impute, length_mask,
+    padding_bias, row_parallel, sinusoid_position_encoding,
 )
 
 
 class FFNLayer(nn.Module):
-    """Bias-free 2-layer ReLU FFN (reference transformer/modules.py:8-20)."""
+    """Bias-free 2-layer ReLU FFN (reference transformer/modules.py:8-20).
+
+    Under tensor parallelism (``parallel/sharding_rules.py:shard_model_``)
+    ``input_layer`` holds hidden columns ``[hidden_offset, hidden_offset +
+    local)`` of ``hidden_size`` and ``output_layer`` the matching rows, over
+    the model group ``tp_group``; the hidden dropout keeps that slice of the
+    whole layer's mask."""
 
     def __init__(self, input_size: int, hidden_size: int, output_size: int,
                  dropout_rate: float = 0.1):
@@ -35,13 +49,55 @@ class FFNLayer(nn.Module):
         self.input_layer = Linear(input_size, hidden_size, bias=False)
         self.output_layer = Linear(hidden_size, output_size, bias=False)
         self.dropout_rate = dropout_rate
+        self.hidden_size = hidden_size
+        self.hidden_offset = 0
+        self.tp_group = None
 
     def forward(self, inputs, deterministic: bool = True,
                 generator: Optional[torch.Generator] = None):
-        hidden = torch.relu(self.input_layer(inputs))
+        hidden = torch.relu(column_parallel(self.input_layer, inputs,
+                                            self.tp_group))
+        local = hidden.shape[-1]
+        shard = None if local == self.hidden_size else \
+            (hidden.dim() - 1, self.hidden_offset, self.hidden_size)
         hidden = dropout(hidden, self.dropout_rate, not deterministic,
-                         generator)
-        return self.output_layer(hidden)
+                         generator, shard)
+        return row_parallel(self.output_layer, hidden, self.tp_group)
+
+
+def remat_call(layer, generator: Optional[torch.Generator], *args):
+    """``layer(*args, generator)`` with its activations recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant: the form that works
+    under DDP).  The layer draws its dropout masks and the attention
+    kernel's seed from ``generator``, which checkpoint's own RNG handling
+    does not cover; so the generator's state at the forward is kept and set
+    again for the recompute, which then draws what the forward drew and
+    reproduces it bit for bit, and afterwards the generator goes back to
+    where the backward found it."""
+    if generator is None:
+        return checkpoint(layer, *args, None, use_reentrant=False)
+    start = generator.get_state()
+    calls = []
+
+    def run(*a):
+        if not calls:       # the forward
+            calls.append(True)
+            return layer(*a, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(*a, generator)
+        finally:
+            generator.set_state(now)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _run(layer, remat: bool, generator, *args):
+    """``layer(*args, generator)``, through ``remat_call`` with ``remat``."""
+    if remat:
+        return remat_call(layer, generator, *args)
+    return layer(*args, generator)
 
 
 def _attention(hp: Config, query_size: int, memory_size: int, size: int,
@@ -65,6 +121,7 @@ class TransformerEncoder(nn.Module):
         super().__init__()
         hidden = hp.encoder_hidden
         self.rate = hp.transformer_dropout_rate
+        self.remat = hp.remat
         sizes = [input_size] + [hidden] * (hp.n_encoder_layer - 1)
         self.self_attentions = nn.ModuleList(
             _attention(hp, s, s, s, True) for s in sizes)
@@ -89,12 +146,12 @@ class TransformerEncoder(nn.Module):
                                         x.device).to(x.dtype)
         x = drop(x + pe[None] * self.pe_scale.to(x.dtype))
         for i in range(len(self.self_attentions)):
-            y, _ = self.self_attentions[i](
-                self.attn_layer_norms[i](x), None, bias, deterministic, False,
-                generator)
+            y, _ = _run(self.self_attentions[i], self.remat, generator,
+                        self.attn_layer_norms[i](x), None, bias,
+                        deterministic, False)
             x = x + drop(y)
-            y = self.ffn_layers[i](self.ffn_layer_norms[i](x), deterministic,
-                                   generator)
+            y = _run(self.ffn_layers[i], self.remat, generator,
+                     self.ffn_layer_norms[i](x), deterministic)
             x = x + drop(y)
         return self.output_layer_norm(x)
 
@@ -117,6 +174,7 @@ class TransformerDecoder(nn.Module):
         self.hp = hp
         self.input_size = input_size
         self.rate = hp.transformer_dropout_rate
+        self.remat = hp.remat
         n = hp.n_decoder_layer
         sizes = [input_size] + [hidden] * (n - 1)
         self.self_attentions = nn.ModuleList(
@@ -157,18 +215,18 @@ class TransformerDecoder(nn.Module):
 
         attn_align, encdec_align = [], []
         for i in range(len(self.self_attentions)):
-            y, a = self.self_attentions[i](
-                self.attn_layer_norms[i](x), None, query_bias, deterministic,
-                collect_alignments, generator)
+            y, a = _run(self.self_attentions[i], self.remat, generator,
+                        self.attn_layer_norms[i](x), None, query_bias,
+                        deterministic, collect_alignments)
             attn_align.append(a)
             x = x + drop(y)
-            y, a = self.encdec_attentions[i](
-                self.encdec_layer_norms[i](x), memory, memory_bias,
-                deterministic, collect_alignments, generator)
+            y, a = _run(self.encdec_attentions[i], self.remat, generator,
+                        self.encdec_layer_norms[i](x), memory, memory_bias,
+                        deterministic, collect_alignments)
             encdec_align.append(a)
             x = x + drop(y)
-            y = self.ffn_layers[i](self.ffn_layer_norms[i](x), deterministic,
-                                   generator)
+            y = _run(self.ffn_layers[i], self.remat, generator,
+                     self.ffn_layer_norms[i](x), deterministic)
             x = x + drop(y)
         outputs = impute(self.output_layer_norm(x), target_lengths)
         return outputs, {"self": attn_align, "encdec": encdec_align}

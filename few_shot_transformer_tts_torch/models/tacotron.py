@@ -32,7 +32,7 @@ from ..config import Config
 from ..utils.device import resolve_device
 from .attention import Linear
 from .common import dropout, impute, length_mask, mask_reduce, \
-    spans_ranks
+    model_parallel_sum, spans_ranks
 from .modules import TransformerDecoder, TransformerEncoder
 
 
@@ -397,11 +397,21 @@ def init_weights_(model: ByteToMel, seed: int) -> ByteToMel:
 def l2_loss(model: nn.Module) -> torch.Tensor:
     """sum(w^2) / 2 over the Linear and Conv1d weights (the JAX package's
     Dense/Conv ``kernel`` leaves); embeddings, norms, biases and
-    ``pe_scale`` are excluded (reference tacotron.py:144-146)."""
-    total = 0.0
+    ``pe_scale`` are excluded (reference tacotron.py:144-146).  The terms
+    of tensor-parallel weights (``param.tp``) are summed over their model
+    group, so every rank gets the whole model's value, and each its own
+    slices' gradient."""
+    total, split, group = 0.0, 0.0, None
     for mod in model.modules():
         if isinstance(mod, (nn.Linear, nn.Conv1d)):
-            total = total + torch.sum(torch.square(mod.weight.float())) / 2
+            term = torch.sum(torch.square(mod.weight.float())) / 2
+            spec = getattr(mod.weight, "tp", None)
+            if spec is None:
+                total = total + term
+            else:
+                split, group = split + term, spec.group
+    if group is not None:
+        total = total + model_parallel_sum(split, group)
     return total
 
 

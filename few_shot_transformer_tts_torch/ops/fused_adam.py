@@ -60,11 +60,14 @@ def is_kernel_leaf(jax_shape: Sequence[int], dtype: torch.dtype) -> bool:
 def kernel_leaf_params(model: nn.Module) -> List[nn.Parameter]:
     """The parameters of ``model`` that take the kernel: each judged in the
     JAX layout (an ``nn.Linear`` weight [out, in] is a flax Dense kernel
-    [in, out]; embeddings keep their layout; convolutions are 3-D in both)."""
+    [in, out]; embeddings keep their layout; convolutions are 3-D in both),
+    a tensor-parallel rank's part of a weight by the whole weight's shape
+    (``param.tp``), so every rank routes the same leaves as one device."""
     out = []
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
-            shape = tuple(p.shape)
+            spec = getattr(p, "tp", None)
+            shape = tuple(p.shape) if spec is None else spec.full_shape
             if isinstance(mod, nn.Linear) and name == "weight":
                 shape = shape[::-1]
             if is_kernel_leaf(shape, p.dtype):

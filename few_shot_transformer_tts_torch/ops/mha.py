@@ -44,7 +44,10 @@ above 1024 raises ``ValueError``.
 The dropout mask is a pure function of (seed, b, h, q, k):
 ``dropout_keep_mask`` (Philox-4x32-10, the same bits as ``csrc/philox.cuh``).
 The seed is an int64 tensor of one element on the tensors' device, so no
-call waits on the device to read it.
+call waits on the device to read it.  ``head_offset`` shifts h: a
+tensor-parallel rank that holds heads ``[head_offset, head_offset + H)`` of
+a layer draws that layer's mask of those heads, so its mask is the slice of
+the whole layer's.
 """
 
 from __future__ import annotations
@@ -153,16 +156,18 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
 
 
 def dropout_keep_mask(seed: torch.Tensor, batch: int, num_heads: int,
-                      tq: int, tk: int, rate: float) -> torch.Tensor:
+                      tq: int, tk: int, rate: float,
+                      head_offset: int = 0) -> torch.Tensor:
     """The kernels' dropout mask, [B, H, Tq, Tk] bool (True = kept): Philox
-    keyed by the seed, counter (k // 4, q, h, b), word k % 4."""
+    keyed by the seed, counter (k // 4, q, head_offset + h, b), word
+    k % 4."""
     dev = seed.device
     s = seed.reshape(()).to(torch.int64)
     key0, key1 = s & _MASK32, (s >> 32) & _MASK32
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=dev)
     c0 = ar((tk + 3) // 4)[None, None, None, :]
     c1 = ar(tq)[None, None, :, None]
-    c2 = ar(num_heads)[None, :, None, None]
+    c2 = (ar(num_heads) + head_offset)[None, :, None, None]
     c3 = ar(batch)[:, None, None, None]
     shape = (batch, num_heads, tq, c0.shape[-1])
     words = philox4x32_10(c0.expand(shape), c1.expand(shape),
@@ -186,7 +191,7 @@ def _scores(q, k, bias, num_heads, causal, scale, use_bias):
 
 def mha_forward_plain(q, k, v, bias, num_heads: int, causal: bool,
                       scale: float, use_bias: bool, rate: float = 0.0,
-                      seed=None):
+                      seed=None, head_offset: int = 0):
     """Plain PyTorch version of the kernel: (o [B,Tq,H*D], lse [B,Tq,H])."""
     b, tq, _ = q.shape
     s = _scores(q, k, bias, num_heads, causal, scale, use_bias)
@@ -197,7 +202,8 @@ def mha_forward_plain(q, k, v, bias, num_heads: int, causal: bool,
     keep = 1.0 - rate
     if rate > 0.0:
         p = torch.where(dropout_keep_mask(seed, b, num_heads, tq, k.shape[1],
-                                          rate), p, torch.zeros_like(p))
+                                          rate, head_offset),
+                        p, torch.zeros_like(p))
     o = torch.matmul(p.to(v.dtype).float(), _split_heads_f32(v, num_heads)) \
         * (1.0 / torch.clamp(l * keep, min=1e-30))
     return _combine_heads(o, q.dtype), lse
@@ -205,7 +211,7 @@ def mha_forward_plain(q, k, v, bias, num_heads: int, causal: bool,
 
 def mha_backward_plain(q, k, v, bias, seed, o, lse, do, num_heads: int,
                        causal: bool, scale: float, use_bias: bool,
-                       rate: float = 0.0):
+                       rate: float = 0.0, head_offset: int = 0):
     """Plain PyTorch version of the backward kernel: (dq, dk, dv) in the
     input type, the TPU kernel's math and rounding points."""
     dt = q.dtype
@@ -221,7 +227,8 @@ def mha_backward_plain(q, k, v, bias, seed, o, lse, do, num_heads: int,
     g, dw = p, torch.matmul(doh, _split_heads_f32(v, num_heads)
                             .transpose(-1, -2))
     if rate > 0.0:
-        keep = dropout_keep_mask(seed, b, num_heads, tq, k.shape[1], rate)
+        keep = dropout_keep_mask(seed, b, num_heads, tq, k.shape[1], rate,
+                                 head_offset)
         g = torch.where(keep, p, torch.zeros_like(p))
         dw = torch.where(keep, dw, torch.zeros_like(dw)) * inv_keep
     dv = torch.matmul(g.to(dt).float().transpose(-1, -2),
@@ -315,7 +322,8 @@ def _workspace_arg(dp, ws) -> tuple:
 
 
 def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
-                use_bias: bool, rate: float = 0.0, seed=None):
+                use_bias: bool, rate: float = 0.0, seed=None,
+                head_offset: int = 0):
     """Attention forward over packed heads: (o [B,Tq,H*D], lse [B,Tq,H]).
 
     q [B,Tq,H*D]; k, v [B,Tk,H*D], each with a contiguous last dim (row
@@ -323,7 +331,8 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
     are; in bf16 they and the base address are 16-byte multiples).  bias
     [B,Tk] additive (used only with ``use_bias``).  ``causal`` masks keys
     after the query (Tq == Tk).  ``rate`` > 0 drops attention
-    weights under the mask of ``seed`` (one int64 on q's device).  CPU
+    weights under the mask of ``seed`` (one int64 on q's device), its heads
+    counted from ``head_offset`` (see the module's note).  CPU
     tensors take the plain version; CUDA tensors launch the kernel of the
     head dim rounded up to a multiple of 32 (padding each head, see the
     module's note) or raise.
@@ -331,7 +340,7 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
     _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
     if q.device.type == "cpu":
         return mha_forward_plain(q, k, v, bias, num_heads, causal, scale,
-                                 use_bias, rate, seed)
+                                 use_bias, rate, seed, head_offset)
     _check_cuda(q, k, v, bias, num_heads, use_bias)
     d = q.shape[2] // num_heads
     dp = kernel_head_dim(d)
@@ -346,8 +355,9 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
         _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
         v.data_ptr(), bias.data_ptr() if use_bias else None,
         seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
-        *_workspace_arg(dp, ws), b, tq, tk, num_heads, q.stride(0),
-        q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        *_workspace_arg(dp, ws), b, tq, tk, num_heads, head_offset,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+        v.stride(1),
         float(scale), int(causal), int(use_bias), int(rate > 0.0),
         dropout_threshold(rate), float(1.0 - rate),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -360,7 +370,7 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
 
 def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
                  causal: bool, scale: float, use_bias: bool,
-                 rate: float = 0.0):
+                 rate: float = 0.0, head_offset: int = 0):
     """Gradients (dq, dk, dv) of ``mha_forward``'s o, in the input type.
 
     Takes the forward's inputs and its (o, lse), and ``do`` [B,Tq,H*D].  The
@@ -371,7 +381,7 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
     _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
     if q.device.type == "cpu":
         return mha_backward_plain(q, k, v, bias, seed, o, lse, do, num_heads,
-                                  causal, scale, use_bias, rate)
+                                  causal, scale, use_bias, rate, head_offset)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
             lse.shape != (q.shape[0], q.shape[1], num_heads) or \
             lse.dtype != torch.float32 or not lse.is_contiguous() or \
@@ -399,8 +409,9 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
         seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         delta.data_ptr(), *_workspace_arg(dp, ws), b, tq, tk, num_heads,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), o.stride(0), o.stride(1), do.stride(0), do.stride(1),
+        head_offset, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0),
+        do.stride(1),
         float(scale), int(causal),
         int(use_bias), int(rate > 0.0), dropout_threshold(rate),
         float(1.0 / (1.0 - rate)),
@@ -424,11 +435,12 @@ class MhaFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, num_heads: int, causal: bool,
-                scale: float, use_bias: bool, rate: float):
+                scale: float, use_bias: bool, rate: float,
+                head_offset: int = 0):
         o, lse = mha_forward(q, k, v, bias, num_heads, causal, scale,
-                             use_bias, rate, seed)
+                             use_bias, rate, seed, head_offset)
         ctx.save_for_backward(q, k, v, bias, seed, o, lse)
-        ctx.config = (num_heads, causal, scale, use_bias, rate)
+        ctx.config = (num_heads, causal, scale, use_bias, rate, head_offset)
         return o
 
     @staticmethod
@@ -436,7 +448,7 @@ class MhaFunction(torch.autograd.Function):
         q, k, v, bias, seed, o, lse = ctx.saved_tensors
         dq, dk, dv = mha_backward(q, k, v, bias, seed, o, lse, do,
                                   *ctx.config)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def draw_seed(generator, device) -> torch.Tensor:
@@ -446,12 +458,13 @@ def draw_seed(generator, device) -> torch.Tensor:
                          device=device, dtype=torch.int64)
 
 
-_FWD_ARGS = "i i p p p p p p p i i i i ll ll ll ll ll ll f i i i u f p"
-_BWD_ARGS = ("i i p p p p p p p p p p p p i i i i ll ll ll ll ll ll ll ll "
+_FWD_ARGS = "i i p p p p p p p i i i i i ll ll ll ll ll ll f i i i u f p"
+_BWD_ARGS = ("i i p p p p p p p p p p p p i i i i i ll ll ll ll ll ll ll ll "
              "ll ll f i i i u f p")
 # csrc/mha_wide.cu's: the workspace after lse (forward) or delta
-_WIDE_FWD_ARGS = "i i p p p p p p p p i i i i ll ll ll ll ll ll f i i i u f p"
-_WIDE_BWD_ARGS = ("i i p p p p p p p p p p p p p i i i i ll ll ll ll ll ll "
+_WIDE_FWD_ARGS = ("i i p p p p p p p p i i i i i ll ll ll ll ll ll f i i i u "
+                  "f p")
+_WIDE_BWD_ARGS = ("i i p p p p p p p p p p p p p i i i i i ll ll ll ll ll ll "
                   "ll ll ll ll f i i i u f p")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "u": ctypes.c_uint,
            "f": ctypes.c_float, "ll": ctypes.c_longlong}

@@ -1,4 +1,4 @@
-"""The process group of data-parallel training (counterpart of
+"""The process groups of data- and tensor-parallel training (counterpart of
 ``few_shot_transformer_tts_tpu/parallel/mesh.py``).
 
 The JAX package runs one jitted program over a ``(data, model)`` mesh: each
@@ -10,14 +10,20 @@ own padded shape, so ``shard_batch``, ``assemble_global_batch`` and
 ``pad_batch_to_devices`` have no counterpart here: the one masked mean over
 the global batch comes from the all-reduced counts and sums in
 ``models/common.py:mask_reduce``, ``models/tacotron.py:MaskedBatchNorm`` and
-``compute_loss``, which take the group of ``make_stats_group``.  The ``model``
-mesh axis (tensor parallelism) is not ported (``check_mesh``).
+``compute_loss``, which take the grid's ``stats_group``.
+
+The JAX ``(data, model)`` mesh is ``make_grid``'s grid of ranks, rank =
+d * model + m: a model group per data index (the tensor-parallel
+all-reduces of ``parallel/sharding_rules.py``), and per model index a data
+group for DDP and one for the loss and BatchNorm all-reduces.  The ranks of
+one model group hold the same rows.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -70,17 +76,6 @@ def local_device(device="cuda", backend: str = "nccl") -> torch.device:
     return rank_device()
 
 
-def make_stats_group() -> Optional["dist.ProcessGroup"]:
-    """A new group over every rank for the loss and BatchNorm all-reduces
-    at world > 1, else None (one process: the single-process path, no
-    collective).  A group of its own, so these collectives never interleave
-    with DDP's gradient buckets on one communicator.  Every rank calls it
-    (creating a group is collective)."""
-    if process_count() == 1:
-        return None
-    return dist.new_group(list(range(process_count())))
-
-
 def agree_global_shape(batch: dict, device) -> np.ndarray:
     """The elementwise max over ranks of (rows, T_in, T_out) of each rank's
     padded batch (JAX ``agree_global_shape``): an ``all_gather`` of three
@@ -95,17 +90,58 @@ def agree_global_shape(batch: dict, device) -> np.ndarray:
 
 
 def check_mesh(hp, world: int) -> None:
-    """The mesh hparams at ``world`` ranks: ``mesh_data_axis`` must be -1
-    or the world size (as JAX ``make_mesh`` asserts); a ``mesh_model_axis``
-    above 1 (tensor parallelism) is not ported."""
-    if hp.mesh_model_axis > 1:
-        raise ValueError(
-            "mesh_model_axis=%d: tensor parallelism is not ported (ROADMAP "
-            "A3b); the port trains data parallel only" % hp.mesh_model_axis)
-    if hp.mesh_model_axis < 1:
-        raise ValueError("mesh_model_axis must be 1, got %d"
-                         % hp.mesh_model_axis)
-    if hp.mesh_data_axis not in (-1, world):
-        raise ValueError("mesh_data_axis=%d does not match the %d ranks "
-                         "(use -1 or the world size)"
-                         % (hp.mesh_data_axis, world))
+    """The mesh hparams at ``world`` ranks, as JAX ``make_mesh`` asserts
+    them: ``mesh_model_axis`` at least 1 and dividing the world size, and
+    ``mesh_data_axis`` -1 or the world size over it."""
+    model = hp.mesh_model_axis
+    if model < 1:
+        raise ValueError("mesh_model_axis must be at least 1, got %d" % model)
+    if world % model:
+        raise ValueError("mesh_model_axis=%d does not divide the %d ranks"
+                         % (model, world))
+    if hp.mesh_data_axis not in (-1, world // model):
+        raise ValueError("mesh_data_axis=%d does not match the %d ranks over "
+                         "mesh_model_axis=%d (use -1 or %d)"
+                         % (hp.mesh_data_axis, world, model, world // model))
+
+
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place in the ``(data, model)`` grid (rank = data_rank *
+    model + model_rank) and its groups, each None when it would hold one
+    rank: ``model_group`` (the ranks of its data index: the tensor-parallel
+    all-reduces), ``data_group`` (the ranks of its model index: DDP's
+    gradient averaging) and ``stats_group`` (the same ranks: the loss and
+    BatchNorm all-reduces, a group of its own so that they never interleave
+    with DDP's buckets on one communicator)."""
+    data: int
+    model: int
+    data_rank: int
+    model_rank: int
+    model_group: Any = None
+    data_group: Any = None
+    stats_group: Any = None
+
+
+def make_grid(model: int = 1) -> Grid:
+    """The grid of the process group (one process: a grid of one rank, no
+    group).  Every rank calls it: creating a group is collective."""
+    world, rank = process_count(), process_index()
+    if model < 1 or world % model:
+        raise ValueError("mesh_model_axis=%d does not divide the %d ranks"
+                         % (model, world))
+    data = world // model
+    d, m = divmod(rank, model)
+    groups = {}
+    if world > 1:
+        # every rank creates every group, in one order
+        for dd in range(data):
+            g = dist.new_group([dd * model + mm for mm in range(model)])
+            if dd == d and model > 1:
+                groups["model_group"] = g
+        for name in ("data_group", "stats_group"):
+            for mm in range(model):
+                g = dist.new_group([dd * model + mm for dd in range(data)])
+                if mm == m and data > 1:
+                    groups[name] = g
+    return Grid(data, model, d, m, **groups)

@@ -2,7 +2,8 @@
 ``few_shot_transformer_tts_tpu/parallel/scaling.py``).
 
 Measures the DDP train step (``train/loop.py:train_step`` under
-``DistributedDataParallel``, with the loss and BatchNorm all-reduces) at
+``DistributedDataParallel``, with the loss and BatchNorm all-reduces, as
+the train CLI builds it: ``make_grid`` and ``parallel_step_model``) at
 each data-parallel degree N: N processes, one per GPU, started with
 ``torch.multiprocessing``.  Two modes, as in the JAX module:
 
@@ -60,7 +61,8 @@ def _rank(rank, world, port, hp, rows, t_in, t_out, steps, device, backend,
     """One rank of one degree: its ``rows`` of the global batch under DDP;
     rank 0 writes (sec/step, frames of the global batch) to ``out_path``."""
     from ..models.tacotron import ByteToMel, init_weights_
-    from ..train.loop import (device_batch, make_optimizer, step_generator,
+    from ..train.loop import (device_batch, make_optimizer,
+                              parallel_step_model, step_generator,
                               train_step)
     from . import mesh
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
@@ -70,17 +72,16 @@ def _rank(rank, world, port, hp, rows, t_in, t_out, steps, device, backend,
     try:
         model = init_weights_(ByteToMel(hp, device=dev), 0)
         optimizer, scheduler = make_optimizer(model, hp)
-        group = mesh.make_stats_group()
-        ddp = torch.nn.parallel.DistributedDataParallel(
-            model, device_ids=[dev.index] if dev.type == "cuda" else None,
-            broadcast_buffers=False)
+        grid = mesh.make_grid(1)
+        step_model = parallel_step_model(model, grid, dev)
         full = example_batch(hp, rows * world, t_in, t_out)
         local = {k: v[rank::world] for k, v in full.items()}
         batch = device_batch(local, hp, dev)
 
         def step(i):
-            out = train_step(ddp, optimizer, scheduler, batch, hp,
-                             step_generator(0, i, dev, rank), group)
+            out = train_step(step_model, optimizer, scheduler, batch, hp,
+                             step_generator(0, i, dev, rank),
+                             grid.stats_group)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             return out

@@ -15,9 +15,12 @@ picks the largest step.  ``load_state`` reads three formats
 ``converter.from_jax_train_state``.  Data-parallel runs write that sharded
 format (``snapshot_local_shards``, ``save_state_sharded``): the replicated
 state as the JAX train state tree, each leaf written by the one rank that
-owns it.  ``AsyncCheckpointer`` writes either format off the step's thread:
-the state is copied to the host on the caller's thread, and the encode, the
-write and the rename run on a writer thread.  Feeder (data-iterator) state
+owns it; under tensor parallelism each rank's parts of the split leaves are
+written as slices of the JAX layout.  ``snapshot`` takes the host copy a
+checkpoint of this rank writes (``Snapshot.write``): ``AsyncCheckpointer``
+takes it on the caller's thread and runs the encode, the write and the
+rename on a writer thread, and the train loop keeps the latest one as its
+host mirror for ``crash_save``.  Feeder (data-iterator) state
 is saved per rank as ``feeder_<rank>.pkl`` beside every checkpoint, so every
 checkpoint is a consistent resume point.
 """
@@ -30,32 +33,52 @@ import os
 import pickle
 import threading
 import zlib
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..parallel.sharding_rules import pieces
 from . import flax_msgpack
-from .converter import (from_jax_train_state, jax_train_state_from_port,
-                        load_reference_checkpoint, unflatten_dict)
+from .converter import (from_jax_train_state, jax_array, jax_index,
+                        jax_shape, load_reference_checkpoint,
+                        port_train_leaves, unflatten_dict)
 
 
 def find_ckpt(base_dir: str) -> Optional[str]:
     """Latest model.ckpt-* path — single-file or sharded ``.d`` directory
-    (reference utils/checkpoint.py:8-16)."""
+    (reference utils/checkpoint.py:8-16).  A ``.d`` directory that lacks a
+    shard file (``sharded_complete``) is skipped with a warning: the ranks
+    that reached ``crash_save`` after one rank failed, or a save cut short,
+    leave one."""
     max_step = 0
     result = None
     for f in glob.iglob(os.path.join(base_dir, "model.ckpt-*")):
         step_s = f.split("-")[-1]
-        if step_s.endswith(".d") and os.path.isdir(f):
+        sharded = step_s.endswith(".d") and os.path.isdir(f)
+        if sharded:
             step_s = step_s[:-2]
-        if not step_s.isdigit():
+        if not step_s.isdigit() or int(step_s) <= max_step:
             continue
-        step = int(step_s)
-        if step > max_step:
-            result = f
-            max_step = step
+        if sharded and not sharded_complete(f):
+            logging.warning("Skipping incomplete checkpoint %s: %s", f,
+                            sorted(os.listdir(f)))
+            continue
+        result = f
+        max_step = int(step_s)
     return result
+
+
+def sharded_complete(ckpt_dir: str) -> bool:
+    """Whether ``ckpt_dir`` holds ``shard-<r>-of-<N>.pkl`` for every rank r
+    of one world size N, and no other shard file."""
+    names = set(n for n in os.listdir(ckpt_dir) if n.endswith(".pkl"))
+    worlds = set(n.rsplit("-", 1)[-1][:-4] for n in names)
+    if len(worlds) != 1 or not next(iter(worlds)).isdigit():
+        return False
+    world = int(worlds.pop())
+    return names == {"shard-%d-of-%d.pkl" % (r, world) for r in range(world)}
 
 
 def save_state(model_dir: str, model, optimizer, scheduler, step: int) -> str:
@@ -88,6 +111,43 @@ def host_copy(obj):
     if isinstance(obj, (list, tuple)):
         return type(obj)(host_copy(v) for v in obj)
     return obj
+
+
+@dataclass
+class Snapshot:
+    """The host copy of one rank's checkpoint at ``step``: the whole state
+    dict of ``save_state`` (``state``), or with ``shards`` this rank's
+    share of the sharded format (``snapshot_local_shards``)."""
+    step: int
+    state: Optional[dict] = None
+    shards: Optional[dict] = None
+    rank: int = 0
+    world: int = 1
+
+    def write(self, model_dir: str) -> str:
+        """Write it: ``model.ckpt-<step>``, or this rank's shard file of
+        ``model.ckpt-<step>.d``."""
+        if self.shards is not None:
+            return save_state_sharded(model_dir, self.shards, self.step,
+                                      self.rank, self.world)
+        return write_state(model_dir, self.state)
+
+
+def snapshot(model, optimizer, scheduler, step: int, sharded: bool = False,
+             rank: int = 0, world: int = 1, grid=None) -> Snapshot:
+    """Copy this rank's checkpoint to the host: the model, optimizer and
+    scheduler state as ``save_state`` writes them, or with ``sharded`` the
+    rank's share of the sharded format (``snapshot_local_shards``; the
+    scheduler is not stored, it resumes at the step).  Raises when the
+    state cannot be fetched (after a sticky CUDA error every copy to the
+    host raises)."""
+    if sharded:
+        return Snapshot(step, shards=snapshot_local_shards(
+            model, optimizer, step, rank, world, grid), rank=rank,
+            world=world)
+    return Snapshot(step, state=host_copy({
+        "model": model.state_dict(), "optim": optimizer.state_dict(),
+        "sched": scheduler.state_dict(), "step": int(step)}))
 
 
 class AsyncCheckpointer:
@@ -130,25 +190,18 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def save(self, model_dir: str, model, optimizer, scheduler, step: int,
-             sharded: bool = False, rank: int = 0, world: int = 1) -> None:
-        """Copy the state to the host now and write it on the writer
-        thread: ``model.ckpt-<step>``, or with ``sharded`` this rank's
-        ``shard-<rank>-of-<world>.pkl`` of ``model.ckpt-<step>.d``
-        (``snapshot_local_shards``, ``save_state_sharded``; every rank
-        calls it, the scheduler is not stored: it resumes at the step)."""
-        if sharded:
-            shards = snapshot_local_shards(model, optimizer, step, rank,
-                                           world)
-            self.wait()
-            self._start(self._run, save_state_sharded, model_dir, shards,
-                        step, rank, world)
-            return
-        state = host_copy({"model": model.state_dict(),
-                           "optim": optimizer.state_dict(),
-                           "sched": scheduler.state_dict(),
-                           "step": int(step)})
+             sharded: bool = False, rank: int = 0, world: int = 1,
+             grid=None) -> Snapshot:
+        """Copy the state to the host now (``snapshot``) and write it on
+        the writer thread: ``model.ckpt-<step>``, or with ``sharded`` this
+        rank's ``shard-<rank>-of-<world>.pkl`` of ``model.ckpt-<step>.d``
+        (every rank calls it).  Returns the snapshot, which nothing else
+        writes to."""
+        snap = snapshot(model, optimizer, scheduler, step, sharded, rank,
+                        world, grid)
         self.wait()
-        self._start(self._run, write_state, model_dir, state)
+        self._start(self._run, snap.write, model_dir)
+        return snap
 
     def then(self, fn, *args) -> None:
         """Run ``fn(*args)`` on the writer's side once the write in flight
@@ -262,35 +315,45 @@ def leaf_owner(key: str, shape, world: int) -> int:
     return zlib.crc32(("%s|%s" % (key, index)).encode()) % world
 
 
+def piece_owner(key: str, index: tuple, grid) -> int:
+    """The rank that writes one part of a tensor-parallel leaf: among the
+    ranks that hold it (this model rank at every data index), the one at
+    data index ``crc32("<key>|<index>") % data``, as JAX ``_owner_device``
+    picks among a shard's replicas."""
+    d = zlib.crc32(("%s|%s" % (key, index)).encode()) % grid.data
+    return d * grid.model + grid.model_rank
+
+
 def snapshot_local_shards(model, optimizer, step: int, rank: int,
-                          world: int) -> dict:
-    """This rank's share of the sharded format, on the host: the leaves of
-    the train state tree of ``converter.jax_train_state_from_port`` that
-    ``leaf_owner`` gives this rank, under flax-path keys (``params/...``,
-    ``batch_stats/...``, ``opt_state/0/{count,mu,nu}/...``,
-    ``opt_state/1/count``, ``step``), each whole.  Only those leaves are
-    copied to the host, and each is a copy, so the next step's in-place
-    updates do not reach it."""
-    tree = jax_train_state_from_port(
-        model, optimizer, step,
-        keep=lambda key, shape: leaf_owner(key, shape, world) == rank)
+                          world: int, grid=None) -> dict:
+    """This rank's share of the sharded format, on the host, under
+    flax-path keys (``params/...``, ``batch_stats/...``,
+    ``opt_state/0/{count,mu,nu}/...``, ``opt_state/1/count``, ``step``;
+    ``converter.port_train_leaves``): each whole leaf that ``leaf_owner``
+    gives this rank, and, under tensor parallelism (``grid``, the rank's
+    place in the grid), each part of a split leaf that ``piece_owner`` gives
+    it, as a slice of the JAX layout.  Only those leaves are copied to the
+    host, and each is a copy, so the next step's in-place updates do not
+    reach it."""
     shards = {}
-    for path, leaf in _flatten(tree).items():
-        arr = np.array(leaf)
-        shards["/".join(path)] = {
-            "shape": tuple(arr.shape), "dtype": str(arr.dtype),
-            "shards": [(tuple(slice(None) for _ in arr.shape), arr)]}
+    for key, kind, value, spec in port_train_leaves(model, optimizer, step):
+        if spec is None:
+            shape = jax_shape(kind, value.shape)
+            if leaf_owner(key, shape, world) == rank:
+                arr = np.array(jax_array(kind, value))
+                shards[key] = {"shape": shape, "dtype": str(arr.dtype),
+                               "shards": [(tuple(slice(None) for _ in shape),
+                                           arr)]}
+            continue
+        owned = []
+        for index, piece in pieces(value, spec):
+            index = jax_index(kind, index)
+            if piece_owner(key, index, grid) == rank:
+                owned.append((index, np.array(jax_array(kind, piece))))
+        if owned:
+            shards[key] = {"shape": jax_shape(kind, spec.full_shape),
+                           "dtype": str(owned[0][1].dtype), "shards": owned}
     return shards
-
-
-def _flatten(tree: dict, prefix=()) -> dict:
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(_flatten(v, prefix + (k,)))
-        else:
-            out[prefix + (k,)] = v
-    return out
 
 
 def save_state_sharded(model_dir: str, shards: dict, step: int, rank: int,

@@ -5,8 +5,11 @@
 
 The flags of the JAX package's root ``train.py`` (reference train.py:251-299)
 plus ``--device`` (default cuda; a missing card raises rather than falling
-back) and ``--dist_backend``, without ``--mirror_interval`` and
-``--profile_*``.  Data-parallel training runs one process per GPU:
+back) and ``--dist_backend``.  ``--mirror_interval`` sets how often the
+host mirror that a crash save falls back to is taken; ``--profile_dir``
+writes a ``torch.profiler`` Chrome trace of steps ``[--profile_step,
+--profile_step + --profile_n_steps)``, one file per rank.  Data-parallel
+training runs one process per GPU:
 
     torchrun --nproc_per_node N -m few_shot_transformer_tts_torch.train \
         --multihost --model-dir DIR --log-dir DIR --data-dir DIR ...
@@ -15,7 +18,10 @@ back) and ``--dist_backend``, without ``--mirror_interval`` and
 ``--dist_backend`` (default nccl on a card, gloo with ``--device cpu``; a
 failed NCCL start raises, and gloo runs on a card only when asked for: it
 is how one card runs two ranks).  Every checkpoint of a run of more than
-one rank is a sharded ``model.ckpt-<step>.d`` directory.
+one rank is a sharded ``model.ckpt-<step>.d`` directory.  With
+``mesh_model_axis=M`` in ``--hparams`` the ranks form the JAX mesh's
+``(data, model)`` grid and run the replicated step on it, the rows sharded
+over the data index (as the JAX CLI, which has no tensor-parallel flag).
 The data dir holds ``mels.zip``, ``metadata.train.txt``,
 ``metadata.eval.txt``, ``lang_id.json`` and ``spk_id.json``.  Checkpoints
 are written as ``model.ckpt-<step>`` files in the reference torch format; a
@@ -59,6 +65,10 @@ def build_parser():
     parser.add_argument('--restore_from', default=None)
     parser.add_argument('--hparams', default='', help='k=v,... overrides')
     parser.add_argument('--max_steps', type=int, default=None)
+    parser.add_argument('--mirror_interval', type=int, default=1000,
+                        help='steps between host mirrors of the state, '
+                             'which a crash save writes when the live state '
+                             'cannot be fetched')
     parser.add_argument('--seed', type=int, default=0,
                         help='weights and dropout draws')
     parser.add_argument('--device', default='cuda',
@@ -70,6 +80,10 @@ def build_parser():
                         default=None,
                         help='process group backend with --multihost '
                              '(default nccl on a card, gloo on the CPU)')
+    parser.add_argument('--profile_dir', default=None,
+                        help='write a torch.profiler trace here')
+    parser.add_argument('--profile_step', type=int, default=50)
+    parser.add_argument('--profile_n_steps', type=int, default=5)
     return parser
 
 

@@ -22,7 +22,11 @@ the JAX package's Adam moments into a ``torch.optim.Adam`` state dict, in
 ``_param_names_in_order`` assumes when it imports a torch optimizer).
 ``from_jax_train_state`` turns a whole JAX train state, as its msgpack and
 sharded checkpoints hold it, into the state dict, the Adam state and the
-step.
+step; for a tensor-parallel model (``parallel/sharding_rules.py``) each split
+leaf is cut to the rank's part.  ``port_train_leaves`` walks the port's
+state the other way, leaf by leaf, with each split leaf's ``ShardSpec``: the
+sharded checkpoint writer records a rank's parts as slices of the JAX
+layout (``jax_index``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from ..parallel.sharding_rules import take
 
 
 def _flatten(tree: dict, prefix=()):
@@ -143,7 +149,7 @@ def unflatten_dict(flat: dict) -> dict:
     return out
 
 
-def _jax_array(kind: str, tensor) -> np.ndarray:
+def jax_array(kind: str, tensor) -> np.ndarray:
     """One leaf in the JAX layout: Linear weights transposed, Conv1d
     weights to [k, in, out], ``pe_scale`` 0-d."""
     arr = tensor.detach().cpu().numpy() \
@@ -157,8 +163,8 @@ def _jax_array(kind: str, tensor) -> np.ndarray:
     return arr
 
 
-def _jax_shape(kind: str, shape) -> tuple:
-    """The shape ``_jax_array`` gives a leaf of ``shape``."""
+def jax_shape(kind: str, shape) -> tuple:
+    """The shape ``jax_array`` gives a leaf of ``shape``."""
     if kind == "pe_scale":
         return ()
     if kind in ("conv_kernel", "kernel"):
@@ -178,11 +184,21 @@ def jax_variables_from_state_dict(state_dict) -> dict:
         if kind == "skip":
             continue
         (batch_stats if kind == "batch_stat" else params)[path] = \
-            _jax_array(kind, tensor)
+            jax_array(kind, tensor)
     out = {"params": unflatten_dict(params)}
     if batch_stats:
         out["batch_stats"] = unflatten_dict(batch_stats)
     return out
+
+
+def local_state_dict(state_dict: dict, model: nn.Module) -> dict:
+    """A whole state dict cut to ``model``'s parts: each entry of a
+    tensor-parallel parameter (``param.tp``) becomes the rank's part
+    (``sharding_rules.take``); the others stay as they are."""
+    specs = {n: p.tp for n, p in model.named_parameters()
+             if getattr(p, "tp", None) is not None}
+    return {k: take(v, specs[k]) if k in specs else v
+            for k, v in state_dict.items()}
 
 
 def optimizer_state_from_jax(mu: dict, nu: dict, count: int,
@@ -190,9 +206,11 @@ def optimizer_state_from_jax(mu: dict, nu: dict, count: int,
     """The JAX package's Adam moments (``mu``/``nu`` trees of numpy arrays in
     the params layout, and the step ``count``) as a state dict for
     ``optimizer`` (a ``torch.optim.Adam`` over ``model.parameters()``),
-    whose param groups it keeps."""
-    mu_sd = state_dict_from_jax_variables({"params": mu})
-    nu_sd = state_dict_from_jax_variables({"params": nu})
+    whose param groups it keeps; cut to a tensor-parallel model's parts."""
+    mu_sd = local_state_dict(state_dict_from_jax_variables({"params": mu}),
+                             model)
+    nu_sd = local_state_dict(state_dict_from_jax_variables({"params": nu}),
+                             model)
     names = [name for name, _ in model.named_parameters()]
     if sorted(names) != sorted(mu_sd) or sorted(names) != sorted(nu_sd):
         raise ValueError("the moments do not cover the model's parameters")
@@ -208,10 +226,11 @@ def from_jax_train_state(tree: dict, model: nn.Module, optimizer=None):
     batch_stats, opt_state: {"0": {count, mu, nu}, "1": {count}}}`` (optax
     Adam, then its schedule; the layout the JAX ``import_opt_state``
     grafts), -> (the port's state dict, ``optimizer``'s state dict with the
-    Adam moments or None without an optimizer, the step)."""
-    state_dict = state_dict_from_jax_variables(
+    Adam moments or None without an optimizer, the step), each cut to a
+    tensor-parallel model's parts."""
+    state_dict = local_state_dict(state_dict_from_jax_variables(
         {"params": tree["params"], "batch_stats": tree.get("batch_stats")
-         or {}})
+         or {}}), model)
     optim = None
     if optimizer is not None:
         adam = tree["opt_state"]["0"]
@@ -220,39 +239,31 @@ def from_jax_train_state(tree: dict, model: nn.Module, optimizer=None):
     return state_dict, optim, int(tree["step"])
 
 
-def jax_train_state_from_port(model: nn.Module, optimizer, step: int,
-                              keep=None) -> dict:
-    """The inverse of ``from_jax_train_state``: the port's model and Adam
-    state as the JAX package's train state tree, ``{step, params,
-    batch_stats, opt_state: {"0": {count, mu, nu}, "1": {count}}}``, numpy
-    leaves in the JAX layout (as ``jax_variables_from_state_dict`` gives
-    them), the counts and the step int32 as the JAX trainer keeps them.  A
-    parameter with no Adam state yet (no step taken) gets zero moments.
-    ``keep(key, shape)``, given a leaf's flax-path key (``params/...``,
-    ``opt_state/0/mu/...``) and JAX shape, selects the leaves converted
-    (default: all); the others are left out of the tree, and never copied
-    to the host."""
-    keep = keep or (lambda key, shape: True)
-    flat = {}
-
-    def add(key, kind, tensor):
-        if keep(key, _jax_shape(kind, tensor.shape)):
-            flat[tuple(key.split("/"))] = _jax_array(kind, tensor)
-
+def port_train_leaves(model: nn.Module, optimizer, step: int):
+    """Every leaf of the JAX train state of ``model`` and its Adam state, as
+    (flax-path key, kind, value, ShardSpec or None): ``params/...`` and
+    ``batch_stats/...`` from the state dict, ``opt_state/0/{mu,nu}/...``
+    (zeros for a parameter with no Adam state yet), then ``step``,
+    ``opt_state/0/count`` and ``opt_state/1/count`` (int32).  A value is the
+    port's tensor (``jax_array`` gives its JAX layout); the spec is its
+    parameter's ``param.tp`` when it is a tensor-parallel rank's part."""
+    params = dict(model.named_parameters())
     for name, tensor in model.state_dict().items():
         kind, path = _jax_leaf(name)
         if kind != "skip":
             group = "batch_stats" if kind == "batch_stat" else "params"
-            add("/".join((group,) + path), kind, tensor)
+            yield ("/".join((group,) + path), kind, tensor,
+                   getattr(params.get(name), "tp", None))
     counts = set()
-    for name, p in model.named_parameters():
+    for name, p in params.items():
         kind, path = _jax_leaf(name)
         st = optimizer.state.get(p, {})
         if "step" in st:
             counts.add(int(st["step"]))
         for slot, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
-            add("/".join(("opt_state", "0", slot) + path), kind,
-                st[key] if key in st else torch.zeros_like(p))
+            yield ("/".join(("opt_state", "0", slot) + path), kind,
+                   st[key] if key in st else torch.zeros_like(p),
+                   getattr(p, "tp", None))
     if len(counts) > 1:
         raise ValueError("the parameters' Adam step counts differ: %s"
                          % sorted(counts))
@@ -260,7 +271,31 @@ def jax_train_state_from_port(model: nn.Module, optimizer, step: int,
     for key, value in (("step", np.asarray(step, np.int32)),
                        ("opt_state/0/count", count),
                        ("opt_state/1/count", count.copy())):
-        add(key, "as_is", value)
+        yield key, "as_is", value, None
+
+
+def jax_index(kind: str, index: tuple) -> tuple:
+    """A torch-layout index of a split leaf (a Linear weight, the only kind
+    tensor parallelism splits) as an index of its JAX layout."""
+    return index[::-1] if kind == "kernel" else index
+
+
+def jax_train_state_from_port(model: nn.Module, optimizer, step: int
+                              ) -> dict:
+    """The inverse of ``from_jax_train_state``: the port's model and Adam
+    state as the JAX package's train state tree, ``{step, params,
+    batch_stats, opt_state: {"0": {count, mu, nu}, "1": {count}}}``, numpy
+    leaves in the JAX layout (as ``jax_variables_from_state_dict`` gives
+    them), the counts and the step int32 as the JAX trainer keeps them.  A
+    parameter with no Adam state yet (no step taken) gets zero moments.  A
+    tensor-parallel model has no whole leaves to give and raises ValueError
+    (its ranks write ``checkpoint.snapshot_local_shards``)."""
+    flat = {}
+    for key, kind, tensor, spec in port_train_leaves(model, optimizer, step):
+        if spec is not None:
+            raise ValueError("%s is a tensor-parallel rank's part; write the "
+                             "state with snapshot_local_shards" % key)
+        flat[tuple(key.split("/"))] = jax_array(kind, tensor)
     return unflatten_dict(flat)
 
 

@@ -10,7 +10,10 @@ reference's cadence: windowed sec/step and loss logging, scalars every
 summary_interval, checkpoint + feeder state every checkpoint_interval (the
 checkpoint through ``AsyncCheckpointer``: the host copy on the step's thread,
 the write on a writer thread), inline eval, and a state save on a crash or
-SIGTERM.
+SIGTERM.  A rolling host mirror of the state (``--mirror_interval``, and
+every checkpoint's own host copy) is what ``crash_save`` writes when the
+live state cannot be fetched, and ``--profile_dir`` traces a window of
+steps with ``torch.profiler`` (``Profiler``).
 
 As in the JAX package, the losses stay on the device and are fetched every
 ``log_interval`` steps (and at each summary/checkpoint/eval/stop boundary)
@@ -24,15 +27,23 @@ With ``--multihost`` (one process per GPU under ``torchrun``) the step runs
 under ``DistributedDataParallel`` and keeps the JAX step's semantics over the
 global batch: each rank trains on its own ``[rank::world]`` rows, the
 masked means and the postnet's BatchNorm statistics are all-reduced over
-the ranks (``compute_loss`` and ``MaskedBatchNorm`` with the group of
-``parallel.mesh.make_stats_group``), and every checkpoint is the sharded
+the ranks (``compute_loss`` and ``MaskedBatchNorm`` with the grid's
+``stats_group``), and every checkpoint is the sharded
 ``model.ckpt-<step>.d`` (each rank its own leaves and ``feeder_<rank>.pkl``).
-Rank 0 alone writes the logs, the metrics and the inline eval.  The JAX
-package's profiler hooks are not ported.
+Rank 0 alone writes the logs, the metrics and the inline eval.  With
+``hp.mesh_model_axis`` M > 1 the ranks form the ``(data, model)`` grid of
+``parallel.mesh.make_grid`` and, as the JAX CLI does, run the replicated
+step on it: the Feeder, DDP, the losses and the BatchNorm statistics go
+over the data index, so the M ranks of a model group train on the same
+rows.  The tensor-parallel step (``parallel/sharding_rules.py``) is a
+library call, as the JAX package's ``state_sharding`` is: split the model
+with ``shard_model_`` before ``make_optimizer`` and step it through
+``parallel_step_model``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import logging
@@ -121,14 +132,33 @@ def device_batch(batch: Dict, hp: Config, device) -> Dict[str, torch.Tensor]:
 def step_generator(seed: int, step: int, device, rank: int = 0
                    ) -> torch.Generator:
     """The dropout generator of one step on ``device``: a pure function of
-    (seed, step), with the rank folded in on ranks other than 0, so that
+    (seed, step), with ``rank`` folded in when it is not 0, so that
     data-parallel ranks draw different masks (torch dropout and the
-    attention kernels' Philox seeds both come from it)."""
+    attention kernels' Philox seeds both come from it).  ``rank`` is the
+    data index (``Grid.data_rank``): the ranks of one model group draw the
+    same masks."""
     entropy = [seed, step] if rank == 0 else [seed, step, rank]
     hi, lo = np.random.SeedSequence(entropy).generate_state(2)
     gen = torch.Generator(device)
     gen.manual_seed(((int(hi) << 32) | int(lo)) & (2 ** 63 - 1))
     return gen
+
+
+class StateUpdateError(RuntimeError):
+    """The optimizer step failed part way: the parameters and moments may
+    be half-updated, so ``crash_save`` does not save them."""
+
+
+def parallel_step_model(model: ByteToMel, grid: mesh_lib.Grid, device):
+    """The step's module: ``model`` under DDP over ``grid``'s data group
+    when that spans ranks (its hooks average the gradients), else
+    ``model``.  Call it after ``shard_model_`` and ``make_optimizer``."""
+    if grid.data_group is None:
+        return model
+    device = torch.device(device)
+    return torch.nn.parallel.DistributedDataParallel(
+        model, device_ids=[device.index] if device.type == "cuda" else None,
+        broadcast_buffers=False, process_group=grid.data_group)
 
 
 def train_step(model: ByteToMel, optimizer, scheduler,
@@ -138,7 +168,8 @@ def train_step(model: ByteToMel, optimizer, scheduler,
     Returns the losses as device tensors (no host sync) and ``lr``, the LR
     this step applied.  ``model`` may be the DDP-wrapped model; ``group``
     (data parallel at world > 1) makes the losses and BatchNorm statistics
-    those of every rank's rows (``compute_loss``)."""
+    those of every rank's rows (``compute_loss``).  An exception inside the
+    optimizer step surfaces as ``StateUpdateError``."""
     model.train()
     outputs = model(batch["inputs"], batch["input_lengths"],
                     batch["mel_targets"], batch["target_lengths"],
@@ -150,7 +181,11 @@ def train_step(model: ByteToMel, optimizer, scheduler,
     optimizer.zero_grad(set_to_none=True)
     losses.pop("objective", losses["loss"]).backward()
     lr = optimizer.param_groups[0]["lr"]
-    optimizer.step()
+    try:
+        optimizer.step()
+    except Exception as e:
+        raise StateUpdateError("the optimizer step failed; the parameters "
+                               "may be half-updated") from e
     scheduler.step()
     out = {k: v.detach() for k, v in losses.items()}
     out["lr"] = lr
@@ -175,6 +210,7 @@ def train(args, hp: Config):
         device = resolve_device(args.device)
     rank, world = mesh_lib.process_index(), mesh_lib.process_count()
     mesh_lib.check_mesh(hp, world)
+    grid = mesh_lib.make_grid(hp.mesh_model_axis)
     logdir, model_dir, data_dir = args.log_dir, args.model_dir, args.data_dir
     time_id = datetime.datetime.now().strftime("%m%d_%H%M")
     os.makedirs(model_dir, exist_ok=True)
@@ -215,9 +251,11 @@ def train(args, hp: Config):
                                                  "metadata.train.txt")
     eval_meta = args.eval_meta or os.path.join(data_dir, "metadata.eval.txt")
 
+    # sharded over the data index: the ranks of a model group see one
+    # stream of rows
     feeder = Feeder(
         zipfilepath, train_meta, hparams=hp, spk_to_id=spk_to_id,
-        lang_to_id=lang_to_id, rank=rank, world_size=world,
+        lang_to_id=lang_to_id, rank=grid.data_rank, world_size=grid.data,
         adapt_lang=split_arg(args.adapt_languages),
         adapt_spk=split_arg(args.adapt_speakers),
         train_lang=split_arg(args.training_languages),
@@ -253,14 +291,10 @@ def train(args, hp: Config):
                      model_dir, latest, global_step)
     ckpt_lib.maybe_load_feeder_state(logdir, rank, feeder)
 
-    # the step's module: DDP over the process group when there is one (its
-    # hooks average the gradients); checkpoints and eval take the model
-    step_model, group = model, None
-    if torch.distributed.is_initialized():
-        group = mesh_lib.make_stats_group()
-        step_model = torch.nn.parallel.DistributedDataParallel(
-            model, device_ids=[device.index] if device.type == "cuda"
-            else None, broadcast_buffers=False)
+    # the step's module: DDP over the data group when it spans ranks;
+    # checkpoints and eval take the model
+    step_model = parallel_step_model(model, grid, device)
+    group = grid.stats_group
 
     feeder.global_step = global_step
     feeder.start()
@@ -311,6 +345,8 @@ def train(args, hp: Config):
         if hp.multi_lingual:
             samples = [[(e["langs"], e["losses"]["aft_losses"].cpu().numpy())]
                        for e in pending]
+            if grid.model_rank:   # its rows are model rank 0's as well
+                samples = [[] for _ in pending]
             if world > 1:
                 gathered = [None] * world if rank == 0 else None
                 torch.distributed.gather_object(samples, gathered, dst=0)
@@ -345,6 +381,14 @@ def train(args, hp: Config):
     # torch.save and the disk run on a writer thread; only the copy of the
     # state to the host runs on the step's thread
     saver = ckpt_lib.AsyncCheckpointer()
+    # the rolling host mirror that crash_save falls back to when the live
+    # state cannot be fetched: this rank's checkpoint snapshot, taken here,
+    # every mirror_interval steps and at each checkpoint
+    mirror_interval = getattr(args, "mirror_interval", None) or 1000
+    snapshot = lambda step: ckpt_lib.snapshot(
+        model, optimizer, scheduler, step, world > 1, rank, world, grid)
+    host_mirror = snapshot(global_step)
+    profiler = Profiler(args, rank, device)
 
     logging.info("Start training run")
     batch = feeder.get_batch()
@@ -355,27 +399,32 @@ def train(args, hp: Config):
     window_tic = time.time()
     try:
         while args.max_steps is None or global_step < args.max_steps:
+            profiler.before_step(global_step)
             try:
                 tic = time.perf_counter()
-                losses = train_step(
-                    step_model, optimizer, scheduler, dbatch, hp,
-                    step_generator(args.seed, global_step, device, rank),
-                    group)
+                with profiler.span(global_step):
+                    losses = train_step(
+                        step_model, optimizer, scheduler, dbatch, hp,
+                        step_generator(args.seed, global_step, device,
+                                       grid.data_rank), group)
                 dispatch_s = time.perf_counter() - tic
                 # the next batch is prepared while the card computes
                 next_batch = feeder.get_batch()
                 next_dbatch = device_batch(next_batch, hp, device)
-            except Exception:
+            except Exception as e:
                 logging.error("Failed, input shape: %s, target shape: %s",
                               str(batch["inputs"].shape),
                               str(batch["mel_targets"].shape))
                 saver.wait()
                 crash_save(logdir, model_dir, rank, feeder, model,
-                           optimizer, scheduler, global_step)
+                           optimizer, scheduler, global_step, world=world,
+                           grid=grid, mirror=host_mirror,
+                           live_ok=not isinstance(e, StateUpdateError))
                 raise
 
             global_step += 1
             feeder.global_step = global_step
+            profiler.after_step(global_step)
             entry = {"step": global_step, "losses": losses,
                      "dispatch_s": dispatch_s,
                      "frames": int(np.sum(batch["target_lengths"]))}
@@ -403,9 +452,10 @@ def train(args, hp: Config):
                 flush_pending()
 
             if global_step % args.checkpoint_interval == 0 or stop:
-                saver.save(model_dir, model, optimizer, scheduler,
-                           global_step, sharded=world > 1, rank=rank,
-                           world=world)
+                host_mirror = saver.save(model_dir, model, optimizer,
+                                         scheduler, global_step,
+                                         sharded=world > 1, rank=rank,
+                                         world=world, grid=grid)
                 ckpt_lib.save_feeder_state(logdir, rank, feeder)
                 if rank == 0:
                     logging.info("Save checkpoint to %s", model_dir)
@@ -413,6 +463,8 @@ def train(args, hp: Config):
                     # copied
                     saver.then(_mirror_logs, logdir,
                                os.path.join(model_dir, "logs"))
+            elif global_step % mirror_interval == 0:
+                host_mirror = snapshot(global_step)
 
             if global_step % args.summary_interval == 0 and writer:
                 for key in ["loss", "mse_loss", "l2", "stop_loss",
@@ -441,6 +493,7 @@ def train(args, hp: Config):
                 break
         flush_pending()
     finally:
+        profiler.stop()
         saver.wait()
         signal.signal(signal.SIGTERM, previous_handler)
         if writer:
@@ -455,24 +508,103 @@ def default_backend(device) -> str:
 
 
 def crash_save(logdir, model_dir, rank, feeder, model, optimizer, scheduler,
-               global_step):
+               global_step, world=1, grid=None, mirror=None, live_ok=True):
     """Persist feeder and model state from the train loop's failure path
-    (reference train.py:175-186, JAX ``crash_save``): every rank its feeder
-    state, rank 0 the single-file checkpoint of the replicated state, with
-    no collective.  Each save is best effort and logs its own failure, so
-    the original error still surfaces."""
+    (reference train.py:175-186, JAX ``crash_save``), with no collective:
+    first every rank its feeder state; then the live state, at world 1 rank
+    0's ``model.ckpt-<step>``, at world > 1 each rank its shard file of
+    ``model.ckpt-<step>.d``; and only when the live state cannot be
+    fetched (a copy to the host raises, as every one does after a sticky
+    CUDA error) or ``live_ok`` is False (the optimizer step failed part
+    way), the host ``mirror`` (a ``checkpoint.Snapshot``) at its own step.
+    Each save is best effort and logs its own failure, so the original
+    error still surfaces.  At world > 1 a directory is whole only when
+    every rank took the same branch; ``checkpoint.find_ckpt`` skips one
+    that is not, so a resume starts from the last whole checkpoint."""
     try:
         ckpt_lib.save_feeder_state(logdir, rank, feeder)
     except Exception:
         logging.error("Feeder state save failed:\n%s", traceback.format_exc())
-    if rank != 0:
+    if rank != 0 and world == 1:
         return
+    snap = None
+    if live_ok:
+        try:
+            snap = ckpt_lib.snapshot(model, optimizer, scheduler,
+                                     global_step, world > 1, rank, world,
+                                     grid)
+        except Exception:
+            logging.error("Live state unavailable after the failed step; "
+                          "falling back to the host mirror:\n%s",
+                          traceback.format_exc())
+    else:
+        logging.error("The failed optimizer step may have left the live "
+                      "state half-updated; falling back to the host mirror")
+    source = "the live state"
+    if snap is None:
+        snap, source = mirror, "the host mirror"
+        if snap is None:
+            logging.error("No host mirror to save")
+            return
     try:
-        ckpt_lib.save_state(model_dir, model, optimizer, scheduler,
-                            global_step)
-        logging.info("Crash checkpoint saved at step %d", global_step)
+        snap.write(model_dir)
+        logging.info("Crash checkpoint saved from %s at step %d", source,
+                     snap.step)
     except Exception:
         logging.error("Crash checkpoint failed:\n%s", traceback.format_exc())
+
+
+class Profiler:
+    """The ``--profile_dir`` trace: ``torch.profiler`` (CPU, and CUDA on a
+    card) over the steps ``[profile_step, profile_step + profile_n_steps)``,
+    ended at a ``torch.cuda.synchronize`` so that the last step's kernels
+    are in it, then written as a Chrome trace,
+    ``<profile_dir>/trace_rank<rank>_steps<first>-<last>.json``, and its path
+    logged; each traced step is the span ``train_step <step>``.  Outside the
+    window a step pays a few integer compares: no profiler object and no
+    span exist."""
+
+    def __init__(self, args, rank: int, device):
+        self.dir = getattr(args, "profile_dir", None)
+        self.first = getattr(args, "profile_step", 50)
+        self.end = self.first + getattr(args, "profile_n_steps", 5)
+        self.rank = rank
+        self.device = torch.device(device)
+        self._prof = None
+
+    def before_step(self, step: int) -> None:
+        """Start the trace before step ``profile_step`` (0-based)."""
+        if self.dir and step == self.first and self.end > self.first:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(activities=activities)
+            self._prof.start()
+
+    def span(self, step: int):
+        """The span of one step inside the window, else a null context."""
+        if self._prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function("train_step %d" % step)
+
+    def after_step(self, steps_done: int) -> None:
+        if self._prof is not None and steps_done >= self.end:
+            self.stop()
+
+    def stop(self) -> None:
+        """End the trace (at the window's end, or where the run ends) and
+        write it; a no-op when none runs."""
+        if self._prof is None:
+            return
+        prof, self._prof = self._prof, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        path = os.path.join(self.dir, "trace_rank%d_steps%d-%d.json" % (
+            self.rank, self.first, self.end - 1))
+        prof.export_chrome_trace(path)
+        logging.info("Profiler trace written to %s", path)
 
 
 def _mirror_logs(logdir, dest):

@@ -5,7 +5,8 @@ same global batch.
 Two worker processes (this file run as a script) each take their own rows of
 one 8-row global batch, split 3/5 and cropped to each rank's own padded
 shape, and train 3 Adam steps under ``DistributedDataParallel`` with the
-loss and BatchNorm all-reduces of ``make_stats_group``:
+loss and BatchNorm all-reduces, as the train CLI builds them
+(``make_grid(1)``'s groups, ``parallel_step_model``):
 
 - at dropout 0, with ``torch.optim.Adam`` and with ``use_fused_adam``: the
   losses of both ranks are equal and within rtol 1e-5 of the port's
@@ -25,7 +26,7 @@ loss and BatchNorm all-reduces of ``make_stats_group``:
 - with dropout on, the ranks draw different masks and the losses are
   finite and equal on both ranks;
 - ``check_mesh`` rejects a ``mesh_data_axis`` other than -1 or the world
-  size and a ``mesh_model_axis`` above 1 (ROADMAP A3b); ``init_distributed``
+  size and a ``mesh_model_axis`` that does not divide it; ``init_distributed``
   raises without torchrun's environment, and one process has no group.
 """
 
@@ -44,7 +45,8 @@ from few_shot_transformer_tts_torch.models.tacotron import init_weights_
 from few_shot_transformer_tts_torch.ops.mha import draw_seed
 from few_shot_transformer_tts_torch.parallel import mesh as mesh_lib
 from few_shot_transformer_tts_torch.train.loop import (
-    device_batch, make_optimizer, step_generator, train_step)
+    device_batch, make_optimizer, parallel_step_model, step_generator,
+    train_step)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -91,14 +93,15 @@ def local_rows(batch, rank):
     return {k: np.ascontiguousarray(v) for k, v in local.items()}
 
 
-def run_steps(hp, batch, rank=0, group=None, ddp=False):
+def run_steps(hp, batch, rank=0, grid=None):
     """``STEPS`` train steps from the seed's weights: the global losses,
     each step's gradients, the final state dict and the first step's
-    generator draws."""
+    generator draws.  ``grid``: the data-parallel grid of the rank, else
+    one process."""
     model = init_weights_(ByteToMel(hp, device="cpu"), SEED)
     optimizer, scheduler = make_optimizer(model, hp)
-    step_model = torch.nn.parallel.DistributedDataParallel(
-        model, broadcast_buffers=False) if ddp else model
+    step_model = parallel_step_model(model, grid, "cpu") if grid else model
+    group = grid.stats_group if grid else None
     dbatch = device_batch(batch, hp, "cpu")
     losses, grads = [], []
     for step in range(STEPS):
@@ -118,11 +121,11 @@ def worker(rank, port, out_dir):
     torch.distributed.init_process_group(
         "gloo", init_method="tcp://localhost:%d" % port, rank=rank,
         world_size=WORLD)
-    group = mesh_lib.make_stats_group()
+    grid = mesh_lib.make_grid(1)
     for case, overrides in CASES.items():
         hp = small_test_config(**overrides)
         batch = local_rows(global_batch(hp), rank)
-        torch.save(run_steps(hp, batch, rank, group, ddp=True),
+        torch.save(run_steps(hp, batch, rank, grid),
                    os.path.join(out_dir, "%s-%d.pt" % (case, rank)))
     torch.distributed.destroy_process_group()
 
@@ -248,7 +251,7 @@ def test_dropout_draws_differ_between_ranks(ranks):
 
 @pytest.mark.parametrize("overrides, world, match", [
     (dict(mesh_data_axis=3), 2, "mesh_data_axis=3"),
-    (dict(mesh_model_axis=2), 2, "A3b"),
+    (dict(mesh_model_axis=3), 2, "mesh_model_axis=3 does not divide"),
     (dict(mesh_model_axis=0), 1, "mesh_model_axis"),
 ])
 def test_check_mesh_rejects(overrides, world, match):
@@ -268,7 +271,7 @@ def test_init_distributed_needs_torchruns_environment(monkeypatch):
     with pytest.raises(RuntimeError, match="torchrun"):
         mesh_lib.init_distributed("gloo", "cpu")
     assert mesh_lib.process_count() == 1 and mesh_lib.process_index() == 0
-    assert mesh_lib.make_stats_group() is None
+    assert mesh_lib.make_grid(1) == mesh_lib.Grid(1, 1, 0, 0)
 
 
 if __name__ == "__main__":
