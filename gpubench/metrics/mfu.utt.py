@@ -1,0 +1,8 @@
+"""Model FLOPs of the untraced requests over their seconds, as % of the bf16
+peak."""
+
+from gpubench import readers
+
+
+def read(r):
+    return readers.mfu(r)
