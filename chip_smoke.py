@@ -4001,13 +4001,21 @@ RUNTIME_HPARAMS = CLI_HPARAMS.replace(
 TRACE_KERNELS = ("mha_fwd", "mha_bwd", "ln_bwd_kernel", "adam_leaves_kernel")
 
 
+STEP_PARTS = ("train.backward", "train.forward", "train.optimizer")
+
+
 def trace_names(path):
-    """(kernel names, step spans) of a Chrome trace."""
+    """(kernel names, for each ``train.step`` range the step parts'
+    ranges it holds on its thread) of a Chrome trace."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
-    spans = sorted({e["name"] for e in events
-                    if str(e.get("name", "")).startswith("train_step ")})
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    spans = [sorted({e["name"] for e in ranges
+                     if e["name"] in STEP_PARTS and e["tid"] == s["tid"] and
+                     s["ts"] <= e["ts"] and
+                     e["ts"] + e["dur"] <= s["ts"] + s["dur"]})
+             for s in ranges if s["name"] == "train.step"]
     return kernels, spans
 
 
@@ -4086,7 +4094,7 @@ def runtime_cli(out_dir, seed, smi):
            "store_native_reads": store.native_reads,
            "store_zipfile_reads": store.zipfile_reads}
     row["ok"] = traces == ["trace_rank0_steps3-4.json"] and \
-        spans == ["train_step 3", "train_step 4"] and \
+        spans == [list(STEP_PARTS)] * 2 and \
         all(row["trace_kernels"].values()) and crashed and \
         crash_ckpts == ["model.ckpt-4"] and row["fell_back_to_mirror"] and \
         row["resumed_from_4"] and resumed == 6 and row["store_native"] and \

@@ -37,6 +37,7 @@ import numpy as np
 
 from ..config import Config
 from ..frontend.text import text_to_byte_sequence
+from ..utils import tracing
 from .metadata import (read_meta, group_meta, downsample_language,
                        filter_eval_samples, speaker_of)
 from .zipstore import load_zip
@@ -174,10 +175,19 @@ class Feeder(threading.Thread):
             self.queue.put(_FEEDER_ERROR)
 
     def get_batch(self):
-        batch = self.queue.get()
-        if batch is _FEEDER_ERROR:
-            raise RuntimeError("Feeder thread failed: %r" % self._error)
-        return batch
+        """The next packed batch; counts its target frames and its padding
+        (``data.frames``, ``data.padded_frames``)."""
+        with tracing.span("data.get_batch"):
+            batch = self.queue.get()
+            if batch is _FEEDER_ERROR:
+                raise RuntimeError("Feeder thread failed: %r" % self._error)
+            mel = batch.get("mel_targets")
+            if mel is not None:
+                frames = int(np.sum(batch["target_lengths"]))
+                tracing.count("data.frames", frames)
+                tracing.count("data.padded_frames",
+                              mel.shape[0] * mel.shape[1] - frames)
+            return batch
 
     # ---------------- resumable state ----------------------------------------
 

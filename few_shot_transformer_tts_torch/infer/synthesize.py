@@ -44,6 +44,7 @@ from ..models.common import (NEG_INF, length_mask, padding_bias,
                              sinusoid_position_encoding)
 from ..models.tacotron import ByteToMel
 from ..ops import decode
+from ..utils import tracing
 
 _STOP_CHECK_INTERVAL = 16
 
@@ -83,13 +84,14 @@ def matmul_weights_in(model: ByteToMel, dtype: torch.dtype):
     parameters, biases and ``pe_scale`` stay fp32.  The fp32 parameters are
     restored on exit."""
     saved = []
-    for mod in model.modules():
-        w = getattr(mod, "weight", None)
-        if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Embedding)) and \
-                w.dtype != dtype:
-            saved.append((mod, w))
-            mod.weight = nn.Parameter(w.detach().to(dtype),
-                                      requires_grad=False)
+    with tracing.span("synth.weights"):
+        for mod in model.modules():
+            w = getattr(mod, "weight", None)
+            if isinstance(mod, (nn.Linear, nn.Conv1d, nn.Embedding)) and \
+                    w.dtype != dtype:
+                saved.append((mod, w))
+                mod.weight = nn.Parameter(w.detach().to(dtype),
+                                          requires_grad=False)
     try:
         yield model
     finally:
@@ -123,8 +125,9 @@ def _fused_frames(model: ByteToMel, enc_args, memory_bias, max_frames: int):
     hp, dtype = model.hp, model.dtype
     dec = model.decoder.decoder
     enc = model.encoder(*enc_args, deterministic=True)
-    w = decode.stack_decoder_params(dec, dtype)
-    mem_k, mem_v = decode.project_memory(enc, w.pop("w_kv"), dtype)
+    with tracing.span("synth.weights"):
+        w = decode.stack_decoder_params(dec, dtype)
+        mem_k, mem_v = decode.project_memory(enc, w.pop("w_kv"), dtype)
     b, t_in = memory_bias.shape[0], memory_bias.shape[-1]
     bias = F.pad(memory_bias[:, 0, 0, :].float(),
                  (0, mem_k.shape[2] - t_in), value=NEG_INF)
@@ -158,42 +161,50 @@ def _decode_loop(model: ByteToMel, inputs, input_lengths, input_spk_ids,
     hp = model.hp
     b, t_in = inputs.shape
     enc_args = (inputs, input_lengths, input_spk_ids, input_language_vecs)
-    memory_bias = padding_bias(length_mask(input_lengths, t_in))
-    if use_fused:
-        frame = _fused_frames(model, enc_args, memory_bias, max_frames)
-    else:
-        frame = _eager_frames(model, enc_args, memory_bias, max_frames,
-                              deterministic, collect_self, generator)
     dev = inputs.device
-
-    mels = torch.zeros(b, max_frames, hp.num_mels, device=dev)
+    with tracing.span("synth.encode"):
+        memory_bias = padding_bias(length_mask(input_lengths, t_in))
+        if use_fused:
+            frame = _fused_frames(model, enc_args, memory_bias, max_frames)
+        else:
+            frame = _eager_frames(model, enc_args, memory_bias, max_frames,
+                                  deterministic, collect_self, generator)
+        mels = torch.zeros(b, max_frames, hp.num_mels, device=dev)
+        # self-attention rows over the decoded frames; opt-in,
+        # O(L*B*H*T^2)
+        self_aligns = torch.zeros(
+            hp.n_decoder_layer, b, hp.n_attention_head, max_frames,
+            max_frames, device=dev) if collect_self else None
+        finished = torch.zeros(b, dtype=torch.bool, device=dev)
+        target_lengths = torch.ones(b, dtype=torch.int32, device=dev)
+        prev_mel = torch.zeros(b, hp.num_mels, device=dev)
     aligns = []
-    # self-attention rows over the decoded frames; opt-in, O(L*B*H*T^2)
-    self_aligns = torch.zeros(
-        hp.n_decoder_layer, b, hp.n_attention_head, max_frames, max_frames,
-        device=dev) if collect_self else None
-    finished = torch.zeros(b, dtype=torch.bool, device=dev)
-    target_lengths = torch.ones(b, dtype=torch.int32, device=dev)
-    prev_mel = torch.zeros(b, hp.num_mels, device=dev)
     steps_run = 0
-    for step in range(max_frames):
-        if step % _STOP_CHECK_INTERVAL == 0 and step and bool(finished.all()):
-            break
-        mel, stop, align, self_align = frame(prev_mel, step, finished)
-        mels[:, step] = mel
-        if collect_alignments:
-            aligns.append(align)
-        if collect_self:
-            self_aligns[:, :, :, step, :step + 1] = self_align
-        finished = finished | (stop > 0)
-        target_lengths = torch.where(finished, target_lengths,
-                                     target_lengths + 1)
-        prev_mel = mel
-        steps_run = step + 1
-
-    # the JAX loop stops after the step at which the last row finished
-    n_steps = min(int(target_lengths.max()), steps_run)
-    residual = model.postnet_residual(mels, target_lengths)
+    with tracing.span("synth.frames"):
+        for step in range(max_frames):
+            if step % _STOP_CHECK_INTERVAL == 0 and step:
+                with tracing.span("synth.stop_check"):
+                    done = bool(finished.all())
+                if done:
+                    break
+            with tracing.span("synth.frame"):
+                mel, stop, align, self_align = frame(prev_mel, step,
+                                                     finished)
+                mels[:, step] = mel
+                if collect_alignments:
+                    aligns.append(align)
+                if collect_self:
+                    self_aligns[:, :, :, step, :step + 1] = self_align
+                finished = finished | (stop > 0)
+                target_lengths = torch.where(finished, target_lengths,
+                                             target_lengths + 1)
+                prev_mel = mel
+            steps_run = step + 1
+        tracing.count("synth.frame_steps", steps_run)
+        # the JAX loop stops after the step at which the last row finished
+        n_steps = min(int(target_lengths.max()), steps_run)
+    with tracing.span("synth.postnet"):
+        residual = model.postnet_residual(mels, target_lengths)
     align_t = torch.stack(aligns[:n_steps], dim=3) if collect_alignments \
         else None                                   # [L, B, H, T_dec, T_enc]
     return (mels, mels + residual, target_lengths, align_t,
@@ -221,29 +232,38 @@ def synthesize_batch(model: ByteToMel, batch: Dict[str, Any], hp: Config,
     seeded one if None).  ``hp.use_pallas_decode`` selects the fused decoder
     step for deterministic decodes without self-alignments.
     """
-    tic = time.time()
-    inputs = np.asarray(batch["inputs"])
-    b, t_in = inputs.shape
-    inputs_p, input_lengths, spk, lvec = prepare_decode_inputs(batch, hp)
-    dev = model.device
-    if not deterministic and generator is None:
-        generator = torch.Generator(dev)
-        generator.seed()
-    cap = int(max_frames or hp.max_generation_frames)
-    use_fused = bool(hp.use_pallas_decode and deterministic and
-                     not collect_self_alignments)
+    with tracing.span("synth.call"):
+        return _synthesize(model, batch, hp, deterministic, generator,
+                           collect_alignments, collect_self_alignments,
+                           max_frames)
 
-    as_t = lambda a: torch.from_numpy(a).to(dev)
+
+def _synthesize(model, batch, hp, deterministic, generator,
+                collect_alignments, collect_self_alignments, max_frames):
+    tic = time.time()
+    dev = model.device
+    with tracing.span("synth.prepare"):
+        inputs = np.asarray(batch["inputs"])
+        b, t_in = inputs.shape
+        padded = prepare_decode_inputs(batch, hp)
+        if not deterministic and generator is None:
+            generator = torch.Generator(dev)
+            generator.seed()
+        cap = int(max_frames or hp.max_generation_frames)
+        use_fused = bool(hp.use_pallas_decode and deterministic and
+                         not collect_self_alignments)
+        args = [torch.from_numpy(a).to(dev) for a in padded]
+
     with matmul_weights_in(model, model.dtype):
         mels, mel_aft, target_lengths, aligns, self_aligns, n_steps = \
-            _decode_loop(model, as_t(inputs_p), as_t(input_lengths),
-                         as_t(spk), as_t(lvec), cap, deterministic,
+            _decode_loop(model, *args, cap, deterministic,
                          collect_alignments, collect_self_alignments,
                          use_fused, generator)
 
-    mels = mels[:b, :n_steps].cpu().numpy()
-    mel_aft = mel_aft[:b, :n_steps].cpu().numpy()
-    target_lengths = target_lengths[:b].cpu().numpy()
+    with tracing.span("synth.fetch"):
+        mels = mels[:b, :n_steps].cpu().numpy()
+        mel_aft = mel_aft[:b, :n_steps].cpu().numpy()
+        target_lengths = target_lengths[:b].cpu().numpy()
     toc = time.time()
     total_length = int(target_lengths.sum())
     logging.info(
@@ -279,11 +299,15 @@ def vocode_batch(mel_aft, generated_lengths, hp: Config, device="cuda"):
     trimmed to (length - 1) * hop samples."""
     from ..ops import dsp_torch
     from ..utils.device import resolve_device
-    mel = torch.as_tensor(np.asarray(mel_aft, np.float32)).to(
-        resolve_device(device))
-    wavs = dsp_torch.mel2wav(mel, hp).cpu().numpy()
-    return [wavs[i][:max(0, int(n) - 1) * hp.hop_length]
-            for i, n in enumerate(generated_lengths)]
+    with tracing.span("vocode.call"):
+        with tracing.span("vocode.griffin_lim"):
+            mel = torch.as_tensor(np.asarray(mel_aft, np.float32)).to(
+                resolve_device(device))
+            wavs = dsp_torch.mel2wav(mel, hp)
+        with tracing.span("vocode.fetch"):
+            wavs = wavs.cpu().numpy()
+            return [wavs[i][:max(0, int(n) - 1) * hp.hop_length]
+                    for i, n in enumerate(generated_lengths)]
 
 
 def save_eval_results(names, mel_pre, mel_aft, alignments, input_lengths,

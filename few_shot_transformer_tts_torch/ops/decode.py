@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from ..utils import tracing
 
 _TB = 256                   # cache / memory length multiple (the TPU's block)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -387,51 +388,53 @@ def decoder_frame_step(x, step: int, w, cache_k, cache_v, mem_k, mem_v,
     stage timeline.  The kernel is deterministic.  Launches on one stream
     run one after another: they share the grid barrier's state.
     """
-    step = int(step)
-    _check(x, step, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads)
-    if x.device.type == "cpu":
-        return decoder_frame_step_plain(x, step, w, cache_k, cache_v, mem_k,
-                                        mem_v, mem_bias, num_heads=num_heads)
-    _check_cuda(x, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads)
-    n_layers, b, t_cap, c = cache_k.shape
-    if trace is not None and (trace.dtype != torch.int64 or
-                              trace.device != x.device or
-                              trace.numel() != len(STAGES) * n_layers + 2 or
-                              not trace.is_contiguous()):
-        raise ValueError("trace must be a contiguous int64 tensor of "
-                         "%d L + 2 elements on x's device" % len(STAGES))
-    t_mem = mem_k.shape[2]
-    f = w["w_ffn1"].shape[-1]
-    dev, cdt = x.device, cache_k.dtype
-    x_out = torch.empty((b, c), dtype=torch.float32, device=dev)
-    align = torch.empty((n_layers, b, t_mem, num_heads), dtype=torch.float32,
-                        device=dev)
-    k_new = torch.empty((n_layers, b, c), dtype=cdt, device=dev)
-    v_new = torch.empty((n_layers, b, c), dtype=cdt, device=dev)
-    lib = _library()
-    grid, offsets, entries = _launch_tables(dev, c, f,
-                                            cache_k.element_size())
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # attention logits, chunk statistics and contexts, qkv, cross q, the
-    # rounded context and FFN hidden, the exchange counters
-    scratch = torch.empty((lib.decoder_step_scratch_bytes(
-        cache_k.element_size(), n_layers, b, c, f, num_heads, t_cap, t_mem,
-        grid),),
-        dtype=torch.uint8, device=dev)
-    err = lib.decoder_step(
-        _DTYPE_CODES[cdt], x.data_ptr(), step, w["lns"].data_ptr(),
-        w["tiles"].data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        mem_k.data_ptr(), mem_v.data_ptr(), mem_bias.data_ptr(),
-        x_out.data_ptr(), align.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), scratch.data_ptr(),
-        barrier_state(dev, stream).data_ptr(), offsets.data_ptr(),
-        entries.data_ptr(), None if trace is None else trace.data_ptr(),
-        n_layers, b, t_cap, t_mem, c, f, num_heads, grid, stream)
-    if err != 0:
-        raise RuntimeError("decoder_step launch failed: %s"
-                           % lib.decoder_step_error_string(err).decode())
-    decoder_frame_step.launches += 1
-    return x_out, align, k_new, v_new
+    with tracing.span("ops.decoder_frame_step"):
+        step = int(step)
+        _check(x, step, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads)
+        if x.device.type == "cpu":
+            return decoder_frame_step_plain(x, step, w, cache_k, cache_v,
+                                            mem_k, mem_v, mem_bias,
+                                            num_heads=num_heads)
+        _check_cuda(x, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads)
+        n_layers, b, t_cap, c = cache_k.shape
+        if trace is not None and (
+                trace.dtype != torch.int64 or trace.device != x.device or
+                trace.numel() != len(STAGES) * n_layers + 2 or
+                not trace.is_contiguous()):
+            raise ValueError("trace must be a contiguous int64 tensor of "
+                             "%d L + 2 elements on x's device" % len(STAGES))
+        t_mem = mem_k.shape[2]
+        f = w["w_ffn1"].shape[-1]
+        dev, cdt = x.device, cache_k.dtype
+        x_out = torch.empty((b, c), dtype=torch.float32, device=dev)
+        align = torch.empty((n_layers, b, t_mem, num_heads),
+                            dtype=torch.float32, device=dev)
+        k_new = torch.empty((n_layers, b, c), dtype=cdt, device=dev)
+        v_new = torch.empty((n_layers, b, c), dtype=cdt, device=dev)
+        lib = _library()
+        grid, offsets, entries = _launch_tables(dev, c, f,
+                                                cache_k.element_size())
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # attention logits, chunk statistics and contexts, qkv, cross q, the
+        # rounded context and FFN hidden, the exchange counters
+        scratch = torch.empty((lib.decoder_step_scratch_bytes(
+            cache_k.element_size(), n_layers, b, c, f, num_heads, t_cap, t_mem,
+            grid),),
+            dtype=torch.uint8, device=dev)
+        err = lib.decoder_step(
+            _DTYPE_CODES[cdt], x.data_ptr(), step, w["lns"].data_ptr(),
+            w["tiles"].data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+            mem_k.data_ptr(), mem_v.data_ptr(), mem_bias.data_ptr(),
+            x_out.data_ptr(), align.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), scratch.data_ptr(),
+            barrier_state(dev, stream).data_ptr(), offsets.data_ptr(),
+            entries.data_ptr(), None if trace is None else trace.data_ptr(),
+            n_layers, b, t_cap, t_mem, c, f, num_heads, grid, stream)
+        if err != 0:
+            raise RuntimeError("decoder_step launch failed: %s"
+                               % lib.decoder_step_error_string(err).decode())
+        decoder_frame_step.launches += 1
+        return x_out, align, k_new, v_new
 
 
 # Kernel launches since the count was last reset (tests and chip_smoke.py

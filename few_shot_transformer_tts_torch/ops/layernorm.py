@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from . import cuda_build
+from ..utils import tracing
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_COLS = 1024
@@ -156,41 +157,43 @@ def layer_norm_backward(x: torch.Tensor, gamma: torch.Tensor,
     CUDA tensor of at least grid x len(TRACE_STAMPS) elements (the grid of
     ``ln_bwd_plan``), receives each block's global-timer stamps (ns) in
     TRACE_STAMPS order."""
-    if x.device.type == "cpu":
-        return layer_norm_backward_plain(x, gamma, dy, eps)
-    check_kernel_args(x, gamma, dy)
-    c = x.shape[-1]
-    x2 = x.reshape(-1, c).contiguous()
-    dy2 = dy.reshape(-1, c).contiguous()
-    rows = x2.shape[0]
-    dx = torch.empty_like(x2)
-    grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    if rows == 0:
-        return dx.reshape(x.shape), *grads.zero_()
-    aligned = (x2.data_ptr() | dy2.data_ptr() | dx.data_ptr()) % 16 == 0
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    plan = _plan(x.device, rows, c, x.dtype, aligned)
-    partial, bar = _state(x.device, stream, plan)
-    if trace is not None and (trace.dtype != torch.int64 or
-                              trace.device != x.device or
-                              not trace.is_contiguous() or
-                              trace.numel() < plan.grid * len(TRACE_STAMPS)):
-        raise ValueError("trace must be a contiguous int64 tensor of %d "
-                         "elements on x's device"
-                         % (plan.grid * len(TRACE_STAMPS)))
-    lib = _library()
-    g = grads.data_ptr()
-    err = lib.ln_bwd(_DTYPE_CODES[x.dtype], plan.vector, plan.per_lane,
-                     plan.depth, x2.data_ptr(), gamma.contiguous().data_ptr(),
-                     dy2.data_ptr(), dx.data_ptr(), g, g + 4 * c, partial,
-                     bar, rows, c, plan.rows_per_block, plan.grid,
-                     plan.smem_bytes, eps,
-                     None if trace is None else trace.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("ln_bwd launch failed: %s"
-                           % lib.ln_bwd_error_string(err).decode())
-    layer_norm_backward.launches += 1
-    return dx.reshape(x.shape), *grads.unbind()
+    with tracing.span("ops.layer_norm_backward"):
+        if x.device.type == "cpu":
+            return layer_norm_backward_plain(x, gamma, dy, eps)
+        check_kernel_args(x, gamma, dy)
+        c = x.shape[-1]
+        x2 = x.reshape(-1, c).contiguous()
+        dy2 = dy.reshape(-1, c).contiguous()
+        rows = x2.shape[0]
+        dx = torch.empty_like(x2)
+        grads = torch.empty((2, c), dtype=torch.float32, device=x.device)
+        if rows == 0:
+            return dx.reshape(x.shape), *grads.zero_()
+        aligned = (x2.data_ptr() | dy2.data_ptr() | dx.data_ptr()) % 16 == 0
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        plan = _plan(x.device, rows, c, x.dtype, aligned)
+        partial, bar = _state(x.device, stream, plan)
+        if trace is not None and (
+                trace.dtype != torch.int64 or trace.device != x.device or
+                not trace.is_contiguous() or
+                trace.numel() < plan.grid * len(TRACE_STAMPS)):
+            raise ValueError("trace must be a contiguous int64 tensor of %d "
+                             "elements on x's device"
+                             % (plan.grid * len(TRACE_STAMPS)))
+        lib = _library()
+        g = grads.data_ptr()
+        err = lib.ln_bwd(_DTYPE_CODES[x.dtype], plan.vector, plan.per_lane,
+                         plan.depth, x2.data_ptr(),
+                         gamma.contiguous().data_ptr(),
+                         dy2.data_ptr(), dx.data_ptr(), g, g + 4 * c, partial,
+                         bar, rows, c, plan.rows_per_block, plan.grid,
+                         plan.smem_bytes, eps,
+                         None if trace is None else trace.data_ptr(), stream)
+        if err != 0:
+            raise RuntimeError("ln_bwd launch failed: %s"
+                               % lib.ln_bwd_error_string(err).decode())
+        layer_norm_backward.launches += 1
+        return dx.reshape(x.shape), *grads.unbind()
 
 
 def check_kernel_args(x: torch.Tensor, gamma: torch.Tensor,

@@ -58,6 +58,7 @@ import functools
 import torch
 
 from . import cuda_build
+from ..utils import tracing
 
 NEG_INF = -1e20
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -337,35 +338,38 @@ def mha_forward(q, k, v, bias, num_heads: int, causal: bool, scale: float,
     head dim rounded up to a multiple of 32 (padding each head, see the
     module's note) or raise.
     """
-    _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
-    if q.device.type == "cpu":
-        return mha_forward_plain(q, k, v, bias, num_heads, causal, scale,
-                                 use_bias, rate, seed, head_offset)
-    _check_cuda(q, k, v, bias, num_heads, use_bias)
-    d = q.shape[2] // num_heads
-    dp = kernel_head_dim(d)
-    q, k, v = (pad_heads(t, num_heads, dp) for t in (q, k, v))
-    b, tq, c = q.shape
-    tk = k.shape[1]
-    fwd, err_string = _entry("mha_fwd", dp)
-    o = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, tq, num_heads), dtype=torch.float32, device=q.device)
-    ws = _wide_workspace("forward", dp, q, num_heads, tk)
-    err = fwd(
-        _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), bias.data_ptr() if use_bias else None,
-        seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
-        *_workspace_arg(dp, ws), b, tq, tk, num_heads, head_offset,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1),
-        float(scale), int(causal), int(use_bias), int(rate > 0.0),
-        dropout_threshold(rate), float(1.0 - rate),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("mha_fwd launch failed: %s"
-                           % err_string(err).decode())
-    mha_forward.launches += 1
-    return unpad_heads(o, num_heads, d), lse
+    with tracing.span("ops.mha_forward"):
+        _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
+        if q.device.type == "cpu":
+            return mha_forward_plain(q, k, v, bias, num_heads, causal, scale,
+                                     use_bias, rate, seed, head_offset)
+        _check_cuda(q, k, v, bias, num_heads, use_bias)
+        d = q.shape[2] // num_heads
+        dp = kernel_head_dim(d)
+        q, k, v = (pad_heads(t, num_heads, dp) for t in (q, k, v))
+        b, tq, c = q.shape
+        tk = k.shape[1]
+        fwd, err_string = _entry("mha_fwd", dp)
+        o = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, tq, num_heads), dtype=torch.float32,
+                          device=q.device)
+        ws = _wide_workspace("forward", dp, q, num_heads, tk)
+        err = fwd(
+            _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), bias.data_ptr() if use_bias else None,
+            seed.data_ptr() if rate > 0.0 else None, o.data_ptr(),
+            lse.data_ptr(), *_workspace_arg(dp, ws), b, tq, tk, num_heads,
+            head_offset,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1),
+            float(scale), int(causal), int(use_bias), int(rate > 0.0),
+            dropout_threshold(rate), float(1.0 - rate),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError("mha_fwd launch failed: %s"
+                               % err_string(err).decode())
+        mha_forward.launches += 1
+        return unpad_heads(o, num_heads, d), lse
 
 
 def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
@@ -378,49 +382,55 @@ def mha_backward(q, k, v, bias, seed, o, lse, do, num_heads: int,
     launch the kernels of ``csrc/mha_bwd.cu`` (above head dim 256
     ``csrc/mha_wide.cu``; counted as one call; a head dim that is not a
     multiple of 32 padded as in ``mha_forward``) or raise."""
-    _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
-    if q.device.type == "cpu":
-        return mha_backward_plain(q, k, v, bias, seed, o, lse, do, num_heads,
-                                  causal, scale, use_bias, rate, head_offset)
-    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
-            lse.shape != (q.shape[0], q.shape[1], num_heads) or \
-            lse.dtype != torch.float32 or not lse.is_contiguous() or \
-            lse.device != q.device:
-        raise ValueError("o and do must be [B,Tq,C], o in q's type, and lse "
-                         "a contiguous float32 [B,Tq,H] on q's device")
-    if do.dtype != q.dtype or do.stride(2) != 1 or _misaligned(do):
-        do = do.to(q.dtype, memory_format=torch.contiguous_format, copy=True)
-    _check_cuda(q, k, v, bias, num_heads, use_bias, o, do)
-    d = q.shape[2] // num_heads
-    dp = kernel_head_dim(d)
-    q, k, v, o, do = (pad_heads(t, num_heads, dp) for t in (q, k, v, o, do))
-    b, tq, c = q.shape
-    tk = k.shape[1]
-    bwd, err_string = _entry("mha_bwd", dp)
-    dq = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
-    dv = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
-    delta = torch.empty((b, tq, num_heads), dtype=torch.float32,
-                        device=q.device)
-    ws = _wide_workspace("backward", dp, q, num_heads, tk)
-    err = bwd(
-        _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), bias.data_ptr() if use_bias else None,
-        seed.data_ptr() if rate > 0.0 else None, o.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        delta.data_ptr(), *_workspace_arg(dp, ws), b, tq, tk, num_heads,
-        head_offset, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0),
-        do.stride(1),
-        float(scale), int(causal),
-        int(use_bias), int(rate > 0.0), dropout_threshold(rate),
-        float(1.0 / (1.0 - rate)),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("mha_bwd launch failed: %s"
-                           % err_string(err).decode())
-    mha_backward.launches += 1
-    return tuple(unpad_heads(t, num_heads, d) for t in (dq, dk, dv))
+    with tracing.span("ops.mha_backward"):
+        _check(q, k, v, bias, num_heads, causal, use_bias, rate, seed)
+        if q.device.type == "cpu":
+            return mha_backward_plain(q, k, v, bias, seed, o, lse, do,
+                                      num_heads, causal, scale, use_bias,
+                                      rate, head_offset)
+        if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
+                lse.shape != (q.shape[0], q.shape[1], num_heads) or \
+                lse.dtype != torch.float32 or not lse.is_contiguous() or \
+                lse.device != q.device:
+            raise ValueError("o and do must be [B,Tq,C], o in q's type, and "
+                             "lse a contiguous float32 [B,Tq,H] on q's "
+                             "device")
+        if do.dtype != q.dtype or do.stride(2) != 1 or _misaligned(do):
+            do = do.to(q.dtype, memory_format=torch.contiguous_format,
+                       copy=True)
+        _check_cuda(q, k, v, bias, num_heads, use_bias, o, do)
+        d = q.shape[2] // num_heads
+        dp = kernel_head_dim(d)
+        q, k, v, o, do = (pad_heads(t, num_heads, dp)
+                          for t in (q, k, v, o, do))
+        b, tq, c = q.shape
+        tk = k.shape[1]
+        bwd, err_string = _entry("mha_bwd", dp)
+        dq = torch.empty((b, tq, c), dtype=q.dtype, device=q.device)
+        dk = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
+        dv = torch.empty((b, tk, c), dtype=q.dtype, device=q.device)
+        delta = torch.empty((b, tq, num_heads), dtype=torch.float32,
+                            device=q.device)
+        ws = _wide_workspace("backward", dp, q, num_heads, tk)
+        err = bwd(
+            _DTYPE_CODES[q.dtype], c // num_heads, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), bias.data_ptr() if use_bias else None,
+            seed.data_ptr() if rate > 0.0 else None, o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(),
+            delta.data_ptr(), *_workspace_arg(dp, ws), b, tq, tk, num_heads,
+            head_offset, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), o.stride(0), o.stride(1), do.stride(0),
+            do.stride(1),
+            float(scale), int(causal),
+            int(use_bias), int(rate > 0.0), dropout_threshold(rate),
+            float(1.0 / (1.0 - rate)),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError("mha_bwd launch failed: %s"
+                               % err_string(err).decode())
+        mha_backward.launches += 1
+        return tuple(unpad_heads(t, num_heads, d) for t in (dq, dk, dv))
 
 
 # Kernel launches since the count was last reset (tests and chip_smoke.py

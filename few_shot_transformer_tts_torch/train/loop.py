@@ -43,7 +43,6 @@ with ``shard_model_`` before ``make_optimizer`` and step it through
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 import json
 import logging
@@ -63,7 +62,7 @@ from ..frontend.text import language_vec_to_id
 from ..models.tacotron import ByteToMel, compute_loss, init_weights_, \
     lr_factor
 from ..parallel import mesh as mesh_lib
-from ..utils import infolog
+from ..utils import infolog, tracing
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt_lib
 
@@ -121,12 +120,16 @@ def dequantize_wire_mels(batch: Dict, hp: Config) -> Dict:
 def device_batch(batch: Dict, hp: Config, device) -> Dict[str, torch.Tensor]:
     """The model inputs of a feeder batch on ``device`` (mels through the
     int16 wire when ``hp.wire_mel_int16``)."""
-    host = {k: batch[k] for k in _BATCH_KEYS if k in batch}
-    if hp.wire_mel_int16:
-        host = quantize_wire_mels(host, hp)
-    out = {k: torch.from_numpy(np.asarray(v)).to(device)
-           for k, v in host.items()}
-    return dequantize_wire_mels(out, hp)
+    with tracing.span("data.device_batch"):
+        host = {k: batch[k] for k in _BATCH_KEYS if k in batch}
+        if hp.wire_mel_int16:
+            with tracing.span("data.quantize"):
+                host = quantize_wire_mels(host, hp)
+        with tracing.span("data.h2d"):
+            out = {k: torch.from_numpy(np.asarray(v)).to(device)
+                   for k, v in host.items()}
+        with tracing.span("data.dequantize"):
+            return dequantize_wire_mels(out, hp)
 
 
 def step_generator(seed: int, step: int, device, rank: int = 0
@@ -169,27 +172,36 @@ def train_step(model: ByteToMel, optimizer, scheduler,
     this step applied.  ``model`` may be the DDP-wrapped model; ``group``
     (data parallel at world > 1) makes the losses and BatchNorm statistics
     those of every rank's rows (``compute_loss``).  An exception inside the
-    optimizer step surfaces as ``StateUpdateError``."""
-    model.train()
-    outputs = model(batch["inputs"], batch["input_lengths"],
-                    batch["mel_targets"], batch["target_lengths"],
-                    batch.get("input_spk_ids"),
-                    batch.get("input_language_vecs"), train=True,
-                    generator=generator, group=group)
-    losses = compute_loss(model, batch["mel_targets"],
-                          batch["target_lengths"], outputs, hp, group)
-    optimizer.zero_grad(set_to_none=True)
-    losses.pop("objective", losses["loss"]).backward()
-    lr = optimizer.param_groups[0]["lr"]
-    try:
-        optimizer.step()
-    except Exception as e:
-        raise StateUpdateError("the optimizer step failed; the parameters "
-                               "may be half-updated") from e
-    scheduler.step()
-    out = {k: v.detach() for k, v in losses.items()}
-    out["lr"] = lr
-    return out
+    optimizer step surfaces as ``StateUpdateError``.  Spans: ``train.step``,
+    holding ``train.forward``, ``train.loss``, ``train.backward``
+    and ``train.optimizer`` (zero_grad; Adam and the schedule)."""
+    with tracing.span("train.step"):
+        model.train()
+        with tracing.span("train.forward"):
+            outputs = model(batch["inputs"], batch["input_lengths"],
+                            batch["mel_targets"], batch["target_lengths"],
+                            batch.get("input_spk_ids"),
+                            batch.get("input_language_vecs"), train=True,
+                            generator=generator, group=group)
+        with tracing.span("train.loss"):
+            losses = compute_loss(model, batch["mel_targets"],
+                                  batch["target_lengths"], outputs, hp, group)
+        with tracing.span("train.optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        with tracing.span("train.backward"):
+            losses.pop("objective", losses["loss"]).backward()
+        with tracing.span("train.optimizer"):
+            lr = optimizer.param_groups[0]["lr"]
+            try:
+                optimizer.step()
+            except Exception as e:
+                raise StateUpdateError("the optimizer step failed; the "
+                                       "parameters may be half-updated") \
+                    from e
+            scheduler.step()
+        out = {k: v.detach() for k, v in losses.items()}
+        out["lr"] = lr
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +401,7 @@ def train(args, hp: Config):
         model, optimizer, scheduler, step, world > 1, rank, world, grid)
     host_mirror = snapshot(global_step)
     profiler = Profiler(args, rank, device)
+    host_spans = None       # the tracing window at the last summary
 
     logging.info("Start training run")
     batch = feeder.get_batch()
@@ -401,13 +414,11 @@ def train(args, hp: Config):
         while args.max_steps is None or global_step < args.max_steps:
             profiler.before_step(global_step)
             try:
-                tic = time.perf_counter()
-                with profiler.span(global_step):
-                    losses = train_step(
-                        step_model, optimizer, scheduler, dbatch, hp,
-                        step_generator(args.seed, global_step, device,
-                                       grid.data_rank), group)
-                dispatch_s = time.perf_counter() - tic
+                losses = train_step(
+                    step_model, optimizer, scheduler, dbatch, hp,
+                    step_generator(args.seed, global_step, device,
+                                   grid.data_rank), group)
+                dispatch_s = tracing.last_seconds()    # train.step's
                 # the next batch is prepared while the card computes
                 next_batch = feeder.get_batch()
                 next_dbatch = device_batch(next_batch, hp, device)
@@ -476,6 +487,7 @@ def train(args, hp: Config):
                     for k, v in window.summary():
                         writer.add_scalar(k, v, global_step)
                     window.clear()
+                host_spans = write_host_ms(writer, host_spans, global_step)
 
             run_inline_eval = (
                 (eval_steps and global_step in eval_steps) or
@@ -499,6 +511,23 @@ def train(args, hp: Config):
         if writer:
             writer.close()
     return model, global_step
+
+
+def write_host_ms(writer, last, global_step):
+    """Write the host ms a step of each span since the summary that read
+    ``last`` (the whole window when it was another) as
+    ``host/<span>_ms``; returns the window read, for the next summary."""
+    now = tracing.windows()[-1]
+    if last is None or last["index"] != now["index"]:
+        last = {"spans": {}}
+    before = lambda name: last["spans"].get(name, (0, 0.0, 0.0))
+    steps = now["spans"].get("train.step", (0,))[0] - before("train.step")[0]
+    if steps > 0:
+        for name, (_, total, _) in sorted(now["spans"].items()):
+            writer.add_scalar("host/%s_ms" % name,
+                              1e3 * (total - before(name)[1]) / steps,
+                              global_step)
+    return now
 
 
 def default_backend(device) -> str:
@@ -560,9 +589,11 @@ class Profiler:
     ended at a ``torch.cuda.synchronize`` so that the last step's kernels
     are in it, then written as a Chrome trace,
     ``<profile_dir>/trace_rank<rank>_steps<first>-<last>.json``, and its path
-    logged; each traced step is the span ``train_step <step>``.  Outside the
-    window a step pays a few integer compares: no profiler object and no
-    span exist."""
+    logged with the traced steps' device busy share and the longest idle
+    gaps by program span (``utils/tracing.py``: each step is its
+    ``train.step`` range, with the step's spans inside it).  Outside the
+    window a step pays a few integer compares: no profiler object
+    exists."""
 
     def __init__(self, args, rank: int, device):
         self.dir = getattr(args, "profile_dir", None)
@@ -580,12 +611,6 @@ class Profiler:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._prof = torch.profiler.profile(activities=activities)
             self._prof.start()
-
-    def span(self, step: int):
-        """The span of one step inside the window, else a null context."""
-        if self._prof is None:
-            return contextlib.nullcontext()
-        return torch.profiler.record_function("train_step %d" % step)
 
     def after_step(self, steps_done: int) -> None:
         if self._prof is not None and steps_done >= self.end:
@@ -605,6 +630,14 @@ class Profiler:
             self.rank, self.first, self.end - 1))
         prof.export_chrome_trace(path)
         logging.info("Profiler trace written to %s", path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        busy = tracing.busy_share(events)
+        gaps = tracing.idle_gaps(events, top=3)
+        logging.info("Traced steps: device busy %s; longest idle gaps: %s",
+                     "n/a" if busy is None else "%.1f%%" % (100 * busy),
+                     ", ".join("%.2f ms in %s" % (1e3 * s, name)
+                               for name, s, _ in gaps) or "none")
 
 
 def _mirror_logs(logdir, dest):

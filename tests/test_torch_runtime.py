@@ -2,8 +2,10 @@
 widths of tests/test_torch_train_cli.py:
 
 - ``--profile_dir`` with ``--profile_step 2 --profile_n_steps 2`` writes one
-  Chrome trace, ``trace_rank0_steps2-3.json``, whose step spans are exactly
-  ``train_step 2`` and ``train_step 3``, and logs its path;
+  Chrome trace, ``trace_rank0_steps2-3.json``, with exactly two
+  ``train.step`` ranges, each holding ``train.forward``, ``train.backward``
+  and ``train.optimizer``, and logs its path, the busy share and the idle
+  gaps;
 - ``--mirror_interval``, ``--profile_dir``, ``--profile_step`` and
   ``--profile_n_steps`` parse as the JAX package's root ``train.py`` parses
   them (defaults 1000, None, 50, 5);
@@ -69,11 +71,19 @@ def test_profile_flags_trace_exactly_the_window(corpus):  # noqa: F811
     assert os.listdir(trace_dir) == ["trace_rank0_steps2-3.json"]
     with open(trace_dir / "trace_rank0_steps2-3.json") as f:
         events = json.load(f)["traceEvents"]
-    spans = sorted({e["name"] for e in events
-                    if e.get("name", "").startswith("train_step ")})
-    assert spans == ["train_step 2", "train_step 3"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"]
+    steps = [e for e in ranges if e["name"] == "train.step"]
+    assert len(steps) == 2
+    for step in steps:
+        inside = {e["name"] for e in ranges
+                  if e["tid"] == step["tid"] and step["ts"] <= e["ts"] and
+                  e["ts"] + e["dur"] <= step["ts"] + step["dur"]}
+        assert {"train.forward", "train.backward",
+                "train.optimizer"} <= inside
+    log = _log(corpus, "prof")
     assert "Profiler trace written to %s" % (
-        trace_dir / "trace_rank0_steps2-3.json") in _log(corpus, "prof")
+        trace_dir / "trace_rank0_steps2-3.json") in log
+    assert "Traced steps: device busy" in log
 
 
 def test_runtime_flags_parse_as_the_jax_cli():
