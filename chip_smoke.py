@@ -104,7 +104,12 @@ uncaught exception and a non-zero exit):
      decoder_frame_step launch per frame (512) and 6 attention launches; the
      same call again gives the same mels and lengths bit for bit; the first
      32 frames within TOL_FRAMES of the eager path; frames/s, RTF, and a
-     64-frame profiler window.
+     64-frame profiler window.  Then the fused loop's CUDA graph of the
+     small ops between two kernels, at flagship B=32 and ljspeech B=1
+     (padded to 8): its frames against the same chain run eagerly on the
+     card, bit for bit, at caps of 45 and 125 frames; host us a frame,
+     capture ms and frames/s to caps of 896 and 517, graphed against the
+     eager chain.
   8. cli: a reference-format checkpoint of the random weights, a 2-line
      script and the id maps through ``python -m
      few_shot_transformer_tts_torch.synthesize`` (in-process, 64 frames),
@@ -308,7 +313,8 @@ import torch.nn.functional as F
 from few_shot_transformer_tts_torch.config import default_config
 from few_shot_transformer_tts_torch.infer import synthesize_batch
 from few_shot_transformer_tts_torch.infer.synthesize import (
-    matmul_weights_in, prepare_decode_inputs)
+    _FusedFrames, _fused_loop, _steps, matmul_weights_in,
+    prepare_decode_inputs)
 from few_shot_transformer_tts_torch.models import ByteToMel
 from few_shot_transformer_tts_torch.models.common import (length_mask,
                                                           padding_bias)
@@ -339,6 +345,7 @@ from few_shot_transformer_tts_torch.train.converter import \
 from few_shot_transformer_tts_torch.train.loop import (
     device_batch, make_optimizer, parallel_step_model, step_generator,
     train_step)
+from few_shot_transformer_tts_torch.utils import tracing
 from few_shot_transformer_tts_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1613,7 +1620,8 @@ def check_decode(name, w, inputs, heads, step, iters=20, tol_key=None,
 
 
 def wrapper_host_us(w, inputs, heads, step, n=50):
-    """Host microseconds per ``decoder_frame_step`` call, and of its
+    """Host microseconds per ``decoder_frame_step`` call, per call with
+    ``out`` (the frame loop's: no checks, no allocations), and of its
     argument checks alone, while a sleep kernel holds the card (so no call
     waits on the device)."""
     x, ck, cv, mk, mv, bias = inputs
@@ -1624,13 +1632,20 @@ def wrapper_host_us(w, inputs, heads, step, n=50):
     for _ in range(n):
         decoder_frame_step(*args, num_heads=heads)
     call = (time.perf_counter() - tic) / n * 1e6
+    out = decode_ops.FrameStepOut(x, w, ck, cv, mk, mv, bias,
+                                  num_heads=heads)
+    tic = time.perf_counter()
+    for _ in range(n):
+        decoder_frame_step(*args, num_heads=heads, out=out)
+    call_out = (time.perf_counter() - tic) / n * 1e6
     tic = time.perf_counter()
     for _ in range(n):
         decode_ops._check(*args, heads)
         decode_ops._check_cuda(x, w, ck, cv, mk, mv, bias, heads)
     checks = (time.perf_counter() - tic) / n * 1e6
     torch.cuda.synchronize()
-    return {"call_us": call, "checks_us": checks}
+    return {"call_us": call, "call_with_out_us": call_out,
+            "checks_us": checks}
 
 
 @torch.no_grad()
@@ -1993,7 +2008,128 @@ def main_path_fused_phase(model, hp, batch):
         raise AssertionError("fused synthesis failed (launches expected %s): "
                              "%s" % (want, row))
     profile_phase(model, hp_fused, batch, "profile_fused")
+    frame_graph_phase(model, hp)
     return counts
+
+
+# the fused frame loop's shapes: (name, config overrides, rows, text bytes,
+# cap of the bit check, cap of the timing)
+GRAPH_SHAPES = (("flagship.synth", {}, 32, 160, 45, 896),
+                ("ljspeech.utt", dict(multi_speaker=False,
+                                      multi_lingual=False,
+                                      decoder_hidden=512), 1, 60, 125, 517))
+
+
+@torch.no_grad()
+def fused_frames(model, hp, batch, cap, collect):
+    """synthesize's per-call state of the fused loop (call inside
+    ``matmul_weights_in``)."""
+    args = [torch.from_numpy(a).cuda()
+            for a in prepare_decode_inputs(batch, hp)]
+    bias = padding_bias(length_mask(args[1], args[0].shape[1]))
+    return _FusedFrames(model, args, bias, cap, collect)
+
+
+@torch.no_grad()
+def graph_bit_check(model, hp, batch, cap):
+    """``_fused_loop`` (frame 0's chain eager, then the CUDA graph of it)
+    against the same frames with every chain run eagerly on the card,
+    alignments on: whether every buffer holds the same bits, and the
+    largest difference of each."""
+    with matmul_weights_in(model, model.dtype):
+        graphed = fused_frames(model, hp, batch, cap, True)
+        steps = _fused_loop(graphed, cap)
+        eager = fused_frames(model, hp, batch, cap, True)
+        for step in range(steps):
+            eager.chain(eager.launch(step))
+    torch.cuda.synchronize()
+    fields = ("mels", "target_lengths", "finished", "prev_mel", "cache_k",
+              "cache_v", "aligns", "x", "step_t")
+    diff = {f: float((getattr(graphed, f).double() -
+                      getattr(eager, f).double()).abs().max())
+            for f in fields}
+    return {"frames": steps, "cap": cap,
+            "bit_identical": all(torch.equal(getattr(graphed, f),
+                                             getattr(eager, f))
+                                 for f in fields),
+            "max_abs_diff": diff}
+
+
+@torch.no_grad()
+def frame_loop_timing(model, hp, batch, cap, graphed):
+    """One fused loop to ``cap`` (every row runs to it), its chains replayed
+    from the graph or run eagerly: wall s, frames/s (real rows x frames), host
+    us a frame in the ``synth.frame`` span, capture ms, stop-check ms."""
+    with matmul_weights_in(model, model.dtype):
+        fr = fused_frames(model, hp, batch, cap, False)
+        torch.cuda.synchronize()
+        tracing.reset()
+        tic = time.perf_counter()
+        if graphed:
+            steps = _fused_loop(fr, cap)
+        else:
+            steps = 0
+            for step in _steps(cap, fr.finished):
+                with tracing.span("synth.frame"):
+                    fr.chain(fr.launch(step))
+                steps = step + 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+    spans = tracing.windows()[-1]["spans"]
+    get = lambda name: spans.get(name, (0, 0.0, 0.0))
+    return {"frames": steps, "wall_s": wall,
+            "frames_per_s": steps * len(batch["inputs"]) / wall,
+            "frame_steps_per_s": steps / wall,
+            "host_us_per_frame": get("synth.frame")[1] / steps * 1e6,
+            "capture_ms": get("synth.capture")[1] * 1e3,
+            "stop_check_ms": get("synth.stop_check")[1] * 1e3}
+
+
+def frame_graph_phase(model, hp, seed=5):
+    """The fused frame loop's CUDA graph at the benchmark's two decode
+    shapes (flagship B=32 and ljspeech B=1 padded to 8): graphed frames
+    against the eager chain bit for bit at a cap that is not a multiple of
+    16, then host us a frame, capture ms and frames/s, graphed and eager
+    (the second of two runs each)."""
+    for name, overrides, rows, t_in, check_cap, cap in GRAPH_SHAPES:
+        shape_hp = hp.replace(**overrides)
+        shape_model = model if not overrides else \
+            flagship_model(shape_hp, seed, "cuda")
+        rng = np.random.RandomState(seed)
+        shape_batch = {
+            "inputs": rng.randint(3, 255, (rows, t_in)).astype(np.int32),
+            "input_lengths": rng.randint(t_in // 2, t_in + 1,
+                                         rows).astype(np.int32)}
+        if shape_hp.multi_speaker:
+            shape_batch["input_spk_ids"] = rng.randint(
+                0, shape_hp.max_num_speaker, rows).astype(np.int32)
+            shape_batch["input_language_vecs"] = np.eye(
+                shape_hp.max_num_language, dtype=np.float32)[
+                rng.randint(0, shape_hp.max_num_language, rows)]
+        check = graph_bit_check(shape_model, shape_hp, shape_batch,
+                                check_cap)
+        allocated = torch.cuda.memory_allocated()
+        timing = {}
+        for graphed in (True, False, True, False):
+            timing["graphed" if graphed else "eager_chain"] = \
+                frame_loop_timing(shape_model, shape_hp, shape_batch, cap,
+                                  graphed)
+        row = {"phase": "main_path_fused_graph", "shape": name,
+               "B": rows, "B_padded": prepare_decode_inputs(
+                   shape_batch, shape_hp)[0].shape[0],
+               "T_in": t_in, "bit_check": check, **timing,
+               # a stream of its own a call would hold a cuBLAS workspace
+               # each: the four loops must leave no allocation behind
+               "allocated_growth_mb": (torch.cuda.memory_allocated() -
+                                       allocated) / 2 ** 20,
+               "speedup_frames_per_s":
+               timing["graphed"]["frames_per_s"] /
+               timing["eager_chain"]["frames_per_s"]}
+        emit(row)
+        if not check["bit_identical"]:
+            raise AssertionError("graphed frames differ from the eager "
+                                 "chain: %s" % row)
+        del shape_model
 
 
 def device_kernels(prof):

@@ -15,12 +15,16 @@ The frame loop is a Python loop.  Each frame runs either the eager decoder
 step (per-layer PyTorch ops over KV caches) or, with
 ``hp.use_pallas_decode`` on a deterministic decode without self-alignments
 (the JAX package's dispatch, less its TPU-only width gate), the fused step:
-one ``ops/decode.py:decoder_frame_step`` call runs every decoder layer.  The
-loop asks the device whether every row has finished only every
-``_STOP_CHECK_INTERVAL`` frames, so the host does not wait on the device
-each frame; frames run after the last row finished change no returned value
-(rows are independent, lengths are frozen, and the outputs are cut at the
-true step count).
+one ``ops/decode.py:decoder_frame_step`` call runs every decoder layer.  On
+a card the fused step's ~45 small ops between two kernel launches (cache
+writes, output LN and heads, the stop bookkeeping, the next frame's prenet
+and PE) are captured once per call as a CUDA graph after frame 0 and
+replayed every later frame, so the host enqueues a frame in one kernel
+launch and one graph launch.  The loop asks the device whether every row
+has finished only every ``_STOP_CHECK_INTERVAL`` frames, so the host does
+not wait on the device each frame; frames run after the last row finished
+change no returned value (rows are independent, lengths are frozen, and the
+outputs are cut at the true step count).
 """
 
 from __future__ import annotations
@@ -116,41 +120,173 @@ def _eager_frames(model: ByteToMel, enc_args, memory_bias, max_frames: int,
     return frame
 
 
-def _fused_frames(model: ByteToMel, enc_args, memory_bias, max_frames: int):
+class _FusedFrames:
     """The fused decoder step (counterpart of the JAX package's
-    ``_fused_frames_loop``): weights stacked once, memory K/V for every layer
-    in one product, then per frame the prenet, the PE, one
-    ``decoder_frame_step`` call, the cache write at ``step`` and the output
-    LN and heads.  Deterministic decode only."""
-    hp, dtype = model.hp, model.dtype
-    dec = model.decoder.decoder
-    enc = model.encoder(*enc_args, deterministic=True)
-    with tracing.span("synth.weights"):
-        w = decode.stack_decoder_params(dec, dtype)
-        mem_k, mem_v = decode.project_memory(enc, w.pop("w_kv"), dtype)
-    b, t_in = memory_bias.shape[0], memory_bias.shape[-1]
-    bias = F.pad(memory_bias[:, 0, 0, :].float(),
-                 (0, mem_k.shape[2] - t_in), value=NEG_INF)
-    cache_shape = (hp.n_decoder_layer, b, decode.padded_cap(max_frames),
-                   hp.decoder_hidden)
-    cache_k = torch.zeros(cache_shape, dtype=dtype, device=enc.device)
-    cache_v = torch.zeros(cache_shape, dtype=dtype, device=enc.device)
-    pe = sinusoid_position_encoding(max_frames, hp.decoder_hidden,
-                                    enc.device)
+    ``_fused_frames_loop``) over buffers that live for the whole call:
+    weights stacked once, memory K/V for every layer in one product, then
+    per frame one ``decoder_frame_step`` launch (``launch``) and the chain
+    of small ops up to the next frame's launch (``chain``).  The chain
+    indexes by ``step_t``, a one-element device tensor, and reads and
+    writes these buffers only, so that one CUDA graph of it serves every
+    frame.  Deterministic decode only."""
 
-    def frame(prev_mel, step, finished):
-        x = model.decoder_inputs(prev_mel, finished)
-        x = x + pe[step].to(x.dtype) * dec.pe_scale.to(x.dtype)
-        x_out, align, k_new, v_new = decode.decoder_frame_step(
-            x.float(), step, w, cache_k, cache_v, mem_k, mem_v, bias,
-            num_heads=hp.n_attention_head)
-        cache_k[:, :, step] = k_new
-        cache_v[:, :, step] = v_new
-        mel, stop = model.decoder_outputs(dec.output_layer_norm(
-            x_out.to(dtype)))
-        # [L, B, TmP, H] -> [L, B, H, T_in]
-        return mel, stop, align.permute(0, 1, 3, 2)[..., :t_in], None
-    return frame
+    def __init__(self, model: ByteToMel, enc_args, memory_bias,
+                 max_frames: int, collect_alignments: bool):
+        hp, dtype = model.hp, model.dtype
+        self.model, self.dtype, self.heads = model, dtype, hp.n_attention_head
+        self.dec = dec = model.decoder.decoder
+        enc = model.encoder(*enc_args, deterministic=True)
+        self.device = dev = enc.device
+        with tracing.span("synth.weights"):
+            self.w = decode.stack_decoder_params(dec, dtype)
+            self.mem_k, self.mem_v = decode.project_memory(
+                enc, self.w.pop("w_kv"), dtype)
+        b, self.t_in = memory_bias.shape[0], memory_bias.shape[-1]
+        self.bias = F.pad(memory_bias[:, 0, 0, :].float(),
+                          (0, self.mem_k.shape[2] - self.t_in),
+                          value=NEG_INF)
+        cache_shape = (hp.n_decoder_layer, b, decode.padded_cap(max_frames),
+                       hp.decoder_hidden)
+        self.cache_k = torch.zeros(cache_shape, dtype=dtype, device=dev)
+        self.cache_v = torch.zeros(cache_shape, dtype=dtype, device=dev)
+        # a row past the cap: the chain after the last frame makes an input
+        # that no frame reads
+        self.pe = sinusoid_position_encoding(max_frames + 1,
+                                             hp.decoder_hidden, dev)
+        self.step_t = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.x = torch.empty(b, hp.decoder_hidden, device=dev)
+        self.mels = torch.zeros(b, max_frames, hp.num_mels, device=dev)
+        self.finished = torch.zeros(b, dtype=torch.bool, device=dev)
+        self.target_lengths = torch.ones(b, dtype=torch.int32, device=dev)
+        self.prev_mel = torch.zeros(b, hp.num_mels, device=dev)
+        # [L, B, H, T_dec, T_enc]
+        self.aligns = torch.zeros(
+            hp.n_decoder_layer, b, self.heads, max_frames, self.t_in,
+            device=dev) if collect_alignments else None
+        self.out = decode.FrameStepOut(
+            self.x, self.w, self.cache_k, self.cache_v, self.mem_k,
+            self.mem_v, self.bias, num_heads=self.heads)
+        self.inputs()
+
+    def launch(self, step: int):
+        """The kernel of frame ``step`` (= ``step_t``), on the host: its
+        outputs, ``out``'s buffers."""
+        return decode.decoder_frame_step(
+            self.x, step, self.w, self.cache_k, self.cache_v, self.mem_k,
+            self.mem_v, self.bias, num_heads=self.heads, out=self.out)
+
+    def inputs(self):
+        """Frame ``step_t``'s kernel input ``x``: the prenet of the previous
+        frame, zeros for finished rows, plus the PE at ``step_t``."""
+        x = self.model.decoder_inputs(self.prev_mel, self.finished)
+        pe = self.pe.index_select(0, self.step_t)
+        self.x.copy_(x + pe.to(x.dtype) * self.dec.pe_scale.to(x.dtype))
+
+    def chain(self, outputs):
+        """After frame ``step_t``'s kernel, on its ``outputs``: its k/v into
+        the caches, the output LN and the mel and stop heads, its mel (and
+        cross-attention weights) into the call's buffers, ``finished``,
+        ``target_lengths`` and ``prev_mel``; then ``step_t`` + 1 and that
+        frame's input."""
+        x_out, align, k_new, v_new = outputs
+        t = self.step_t
+        self.cache_k.index_copy_(2, t, k_new[:, :, None])
+        self.cache_v.index_copy_(2, t, v_new[:, :, None])
+        mel, stop = self.model.decoder_outputs(
+            self.dec.output_layer_norm(x_out.to(self.dtype)))
+        self.mels.index_copy_(1, t, mel[:, None])
+        if self.aligns is not None:
+            # [L, B, TmP, H] -> [L, B, H, 1, T_in]
+            self.aligns.index_copy_(
+                3, t, align.permute(0, 1, 3, 2)[:, :, :, None, :self.t_in])
+        self.finished |= stop > 0
+        self.target_lengths += ~self.finished
+        self.prev_mel.copy_(mel)
+        t += 1
+        self.inputs()
+
+
+def _steps(max_frames: int, finished: torch.Tensor):
+    """Frame steps 0, 1, .. up to the cap, or until every row has finished:
+    the device is asked only every ``_STOP_CHECK_INTERVAL`` frames."""
+    for step in range(max_frames):
+        if step % _STOP_CHECK_INTERVAL == 0 and step:
+            with tracing.span("synth.stop_check"):
+                done = bool(finished.all())
+            if done:
+                return
+        yield step
+
+
+# one side stream per device and thread (``_side_stream``)
+_SIDE_STREAMS = {}
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """This thread's stream for frame 0's chain and its capture on
+    ``device``: one for every call, so that cuBLAS keeps one workspace for
+    it (a fresh stream a call would get a workspace each)."""
+    key = (device, threading.get_ident())
+    if key not in _SIDE_STREAMS:
+        _SIDE_STREAMS[key] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[key]
+
+
+@contextlib.contextmanager
+def _on(stream: Optional[torch.cuda.Stream]):
+    """Work inside the block runs on ``stream`` after the current stream's
+    earlier work, and the current stream's later work after it (nothing
+    changes when ``stream`` is None)."""
+    if stream is None:
+        yield
+        return
+    main = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        yield
+    main.wait_stream(stream)
+
+
+def _capture(fn, stream: torch.cuda.Stream) -> torch.cuda.CUDAGraph:
+    """``fn``'s device work as a CUDA graph, captured on ``stream`` (where
+    ``fn`` ran once eagerly)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    return graph
+
+
+def _fused_loop(fr: _FusedFrames, max_frames: int) -> int:
+    """The fused frame loop; returns the frames run.  Frame 0's chain runs
+    eagerly; on a card it runs on a side stream, where it is then captured
+    as a CUDA graph that later frames replay after their kernel, as long as
+    the kernel entry returns the buffers the graph reads (otherwise their
+    chain runs eagerly too)."""
+    side = _side_stream(fr.device) if fr.device.type == "cuda" else None
+    graph = captured = None
+    eager = steps_run = 0
+    for step in _steps(max_frames, fr.finished):
+        with tracing.span("synth.frame"):
+            outputs = fr.launch(step)
+            if graph is not None and all(
+                    a is b for a, b in zip(outputs, captured)):
+                graph.replay()
+            else:
+                with _on(side):
+                    fr.chain(outputs)
+                eager += 1
+        steps_run = step + 1
+        if graph is None and side is not None and steps_run < max_frames:
+            with tracing.span("synth.capture"):
+                graph = _capture(lambda: fr.chain(outputs), side)
+            captured = outputs
+    tracing.count("synth.eager_frames", eager)
+    tracing.count("synth.graph_frames", steps_run - eager)
+    return steps_run
 
 
 @torch.no_grad()
@@ -165,48 +301,53 @@ def _decode_loop(model: ByteToMel, inputs, input_lengths, input_spk_ids,
     with tracing.span("synth.encode"):
         memory_bias = padding_bias(length_mask(input_lengths, t_in))
         if use_fused:
-            frame = _fused_frames(model, enc_args, memory_bias, max_frames)
+            fr = _FusedFrames(model, enc_args, memory_bias, max_frames,
+                              collect_alignments)
+            mels, finished = fr.mels, fr.finished
+            target_lengths = fr.target_lengths
         else:
             frame = _eager_frames(model, enc_args, memory_bias, max_frames,
                                   deterministic, collect_self, generator)
-        mels = torch.zeros(b, max_frames, hp.num_mels, device=dev)
-        # self-attention rows over the decoded frames; opt-in,
-        # O(L*B*H*T^2)
-        self_aligns = torch.zeros(
-            hp.n_decoder_layer, b, hp.n_attention_head, max_frames,
-            max_frames, device=dev) if collect_self else None
-        finished = torch.zeros(b, dtype=torch.bool, device=dev)
-        target_lengths = torch.ones(b, dtype=torch.int32, device=dev)
-        prev_mel = torch.zeros(b, hp.num_mels, device=dev)
+            mels = torch.zeros(b, max_frames, hp.num_mels, device=dev)
+            # self-attention rows over the decoded frames; opt-in,
+            # O(L*B*H*T^2)
+            self_aligns = torch.zeros(
+                hp.n_decoder_layer, b, hp.n_attention_head, max_frames,
+                max_frames, device=dev) if collect_self else None
+            finished = torch.zeros(b, dtype=torch.bool, device=dev)
+            target_lengths = torch.ones(b, dtype=torch.int32, device=dev)
+            prev_mel = torch.zeros(b, hp.num_mels, device=dev)
     aligns = []
     steps_run = 0
     with tracing.span("synth.frames"):
-        for step in range(max_frames):
-            if step % _STOP_CHECK_INTERVAL == 0 and step:
-                with tracing.span("synth.stop_check"):
-                    done = bool(finished.all())
-                if done:
-                    break
-            with tracing.span("synth.frame"):
-                mel, stop, align, self_align = frame(prev_mel, step,
-                                                     finished)
-                mels[:, step] = mel
-                if collect_alignments:
-                    aligns.append(align)
-                if collect_self:
-                    self_aligns[:, :, :, step, :step + 1] = self_align
-                finished = finished | (stop > 0)
-                target_lengths = torch.where(finished, target_lengths,
-                                             target_lengths + 1)
-                prev_mel = mel
-            steps_run = step + 1
+        if use_fused:
+            steps_run = _fused_loop(fr, max_frames)
+        else:
+            for step in _steps(max_frames, finished):
+                with tracing.span("synth.frame"):
+                    mel, stop, align, self_align = frame(prev_mel, step,
+                                                         finished)
+                    mels[:, step] = mel
+                    if collect_alignments:
+                        aligns.append(align)
+                    if collect_self:
+                        self_aligns[:, :, :, step, :step + 1] = self_align
+                    finished |= stop > 0
+                    target_lengths += ~finished
+                    prev_mel = mel
+                steps_run = step + 1
         tracing.count("synth.frame_steps", steps_run)
         # the JAX loop stops after the step at which the last row finished
         n_steps = min(int(target_lengths.max()), steps_run)
     with tracing.span("synth.postnet"):
         residual = model.postnet_residual(mels, target_lengths)
-    align_t = torch.stack(aligns[:n_steps], dim=3) if collect_alignments \
-        else None                                   # [L, B, H, T_dec, T_enc]
+    if not collect_alignments:
+        align_t = None
+    elif use_fused:
+        align_t = fr.aligns[:, :, :, :n_steps]
+    else:
+        align_t = torch.stack(aligns[:n_steps], dim=3)
+    # [L, B, H, T_dec, T_enc]
     return (mels, mels + residual, target_lengths, align_t,
             self_aligns[..., :n_steps, :n_steps] if collect_self else None,
             n_steps)

@@ -365,8 +365,59 @@ def barrier_state(device: torch.device, stream: int) -> torch.Tensor:
     return _BARRIERS[key]
 
 
+class FrameStepOut:
+    """``decoder_frame_step``'s ``out`` for one set of inputs: their shapes
+    and types checked once as a call checks them, the outputs and scratch
+    allocated once, so that a frame loop, which passes the same inputs
+    every frame, finds the outputs at fixed addresses.  ``tensors`` is
+    (x_out, align, k_new, v_new) as the call returns them."""
+
+    def __init__(self, x, w, cache_k, cache_v, mem_k, mem_v, mem_bias, *,
+                 num_heads: int):
+        _check(x, 0, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads)
+        if x.device.type != "cpu":
+            _check_cuda(x, w, cache_k, cache_v, mem_k, mem_v, mem_bias,
+                        num_heads)
+        n_layers, b, t_cap, c = cache_k.shape
+        t_mem, f = mem_k.shape[2], w["w_ffn1"].shape[-1]
+        dev, cdt = x.device, cache_k.dtype
+        self.inputs = (x, w, cache_k, cache_v, mem_k, mem_v, mem_bias)
+        self.t_cap, self.n_layers = t_cap, n_layers
+        self.tensors = (
+            torch.empty((b, c), dtype=torch.float32, device=dev),
+            torch.empty((n_layers, b, t_mem, num_heads), dtype=torch.float32,
+                        device=dev),
+            torch.empty((n_layers, b, c), dtype=cdt, device=dev),
+            torch.empty((n_layers, b, c), dtype=cdt, device=dev))
+        if dev.type == "cpu":
+            return
+        elt = cache_k.element_size()
+        grid, offsets, entries = _launch_tables(dev, c, f, elt)
+        # attention logits, chunk statistics and contexts, qkv, cross q, the
+        # rounded context and FFN hidden, the exchange counters
+        self.scratch = torch.empty((_library().decoder_step_scratch_bytes(
+            elt, n_layers, b, c, f, num_heads, t_cap, t_mem, grid),),
+            dtype=torch.uint8, device=dev)
+        ptr = lambda t: t.data_ptr()
+        # the launch's arguments around (step), (barrier state) and (trace,
+        # stream), the parts that can change from call to call
+        self.head = (_DTYPE_CODES[cdt], ptr(x))
+        self.body = tuple(map(ptr, (
+            w["lns"], w["tiles"], cache_k, cache_v, mem_k, mem_v, mem_bias,
+            *self.tensors, self.scratch)))
+        self.tables = (ptr(offsets), ptr(entries))
+        self.dims = (n_layers, b, t_cap, t_mem, c, f, num_heads, grid)
+
+    def check(self, step, *inputs):
+        if any(a is not b for a, b in zip(inputs, self.inputs)):
+            raise ValueError("out was made for other inputs")
+        if not 0 <= step < self.t_cap:
+            raise ValueError("step %d is outside the cache of %d positions"
+                             % (step, self.t_cap))
+
+
 def decoder_frame_step(x, step: int, w, cache_k, cache_v, mem_k, mem_v,
-                       mem_bias, *, num_heads: int, trace=None):
+                       mem_bias, *, num_heads: int, trace=None, out=None):
     """One frame through all decoder layers.
 
     x [B, C] fp32 (prenet output + PE, dropout off); ``step`` (int) the
@@ -385,56 +436,45 @@ def decoder_frame_step(x, step: int, w, cache_k, cache_v, mem_k, mem_v,
     length, C <= 2048, and C and F whose staged
     activations leave two ring slots of shared memory.  ``trace``, an int64
     CUDA tensor of len(STAGES) * L + 2 elements, receives the kernel's
-    stage timeline.  The kernel is deterministic.  Launches on one stream
-    run one after another: they share the grid barrier's state.
+    stage timeline.  ``out`` (a ``FrameStepOut`` of these same inputs)
+    takes the outputs, which are then its ``tensors``, and spares the
+    call its checks and allocations.  The kernel is deterministic.
+    Launches on one stream run one after another: they share the grid
+    barrier's state.
     """
     with tracing.span("ops.decoder_frame_step"):
         step = int(step)
-        _check(x, step, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads)
-        if x.device.type == "cpu":
-            return decoder_frame_step_plain(x, step, w, cache_k, cache_v,
-                                            mem_k, mem_v, mem_bias,
+        inputs = (w, cache_k, cache_v, mem_k, mem_v, mem_bias)
+        if out is None and x.device.type == "cpu":
+            _check(x, step, *inputs, num_heads)
+            return decoder_frame_step_plain(x, step, *inputs,
                                             num_heads=num_heads)
-        _check_cuda(x, w, cache_k, cache_v, mem_k, mem_v, mem_bias, num_heads)
-        n_layers, b, t_cap, c = cache_k.shape
+        if out is None:
+            out = FrameStepOut(x, *inputs, num_heads=num_heads)
+        out.check(step, x, *inputs)
+        if x.device.type == "cpu":
+            got = decoder_frame_step_plain(x, step, *inputs,
+                                           num_heads=num_heads)
+            for o, g in zip(out.tensors, got):
+                o.copy_(g)
+            return out.tensors
         if trace is not None and (
                 trace.dtype != torch.int64 or trace.device != x.device or
-                trace.numel() != len(STAGES) * n_layers + 2 or
+                trace.numel() != len(STAGES) * out.n_layers + 2 or
                 not trace.is_contiguous()):
             raise ValueError("trace must be a contiguous int64 tensor of "
                              "%d L + 2 elements on x's device" % len(STAGES))
-        t_mem = mem_k.shape[2]
-        f = w["w_ffn1"].shape[-1]
-        dev, cdt = x.device, cache_k.dtype
-        x_out = torch.empty((b, c), dtype=torch.float32, device=dev)
-        align = torch.empty((n_layers, b, t_mem, num_heads),
-                            dtype=torch.float32, device=dev)
-        k_new = torch.empty((n_layers, b, c), dtype=cdt, device=dev)
-        v_new = torch.empty((n_layers, b, c), dtype=cdt, device=dev)
         lib = _library()
-        grid, offsets, entries = _launch_tables(dev, c, f,
-                                                cache_k.element_size())
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        # attention logits, chunk statistics and contexts, qkv, cross q, the
-        # rounded context and FFN hidden, the exchange counters
-        scratch = torch.empty((lib.decoder_step_scratch_bytes(
-            cache_k.element_size(), n_layers, b, c, f, num_heads, t_cap, t_mem,
-            grid),),
-            dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.decoder_step(
-            _DTYPE_CODES[cdt], x.data_ptr(), step, w["lns"].data_ptr(),
-            w["tiles"].data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-            mem_k.data_ptr(), mem_v.data_ptr(), mem_bias.data_ptr(),
-            x_out.data_ptr(), align.data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), scratch.data_ptr(),
-            barrier_state(dev, stream).data_ptr(), offsets.data_ptr(),
-            entries.data_ptr(), None if trace is None else trace.data_ptr(),
-            n_layers, b, t_cap, t_mem, c, f, num_heads, grid, stream)
+            *out.head, step, *out.body,
+            barrier_state(x.device, stream).data_ptr(), *out.tables,
+            None if trace is None else trace.data_ptr(), *out.dims, stream)
         if err != 0:
             raise RuntimeError("decoder_step launch failed: %s"
                                % lib.decoder_step_error_string(err).decode())
         decoder_frame_step.launches += 1
-        return x_out, align, k_new, v_new
+        return out.tensors
 
 
 # Kernel launches since the count was last reset (tests and chip_smoke.py

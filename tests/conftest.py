@@ -29,6 +29,11 @@ assert jax.devices()[0].platform == "cpu", "tests must run on the CPU mesh"
 assert len(jax.devices()) == 8, "expected 8 virtual CPU devices"
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (skips without one)")
+
+
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)

@@ -9,26 +9,37 @@ x_out, k_new and v_new within 1e-5 of their largest magnitude, the
 cross-attention weights within 1e-6.  Then the weight stacking and memory
 projection, ``synthesize_batch`` with ``use_pallas_decode`` against the JAX
 fused path (FSTTS_PALLAS_INTERPRET=1) and against the port's eager path,
-the dispatch rule, and self-alignment collection against JAX.
+the dispatch rule, and self-alignment collection against JAX.  Last, the
+fused frame loop that a card replays as a CUDA graph, run eagerly here:
+against the per-frame code bit for bit, its device step against the host's,
+``decoder_frame_step``'s ``out``, its frame counters and the benchmark's
+reader of them.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.nn import functional as F
 
 from few_shot_transformer_tts_tpu.config import small_test_config as jax_cfg
 from few_shot_transformer_tts_tpu.infer import \
     synthesize_batch as jax_synthesize_batch
 from few_shot_transformer_tts_tpu.models import ByteToMel as JaxByteToMel
 from few_shot_transformer_tts_tpu.ops import pallas_decode as jax_decode
+from few_shot_transformer_tts_torch.infer import synthesize as syn
 from few_shot_transformer_tts_torch.infer import synthesize_batch
 from few_shot_transformer_tts_torch.ops import decode
+from few_shot_transformer_tts_torch.utils import tracing
 
 from test_torch_synthesize import HP, input_batch, with_stop_head
 from test_torch_weights import jax_variables, port_model
 
 FUSED = HP.replace(use_pallas_decode=True)
+ROOT = Path(__file__).resolve().parents[1]
 FRAME_STEP = decode.decoder_frame_step     # before any test replaces it
 
 
@@ -382,3 +393,182 @@ def test_schedule_gives_every_unit_one_owner_and_balances_bytes(c, f, elt,
     if (c, f, elt, grid) == (768, 3072, 2, 132):
         assert decode.layer_elems(c, f) * 2 == 16515072
         assert max(loads) <= 1.15 * sum(loads) / grid
+
+
+# --- the fused frame loop: the kernel launch, then the chain of small ops
+# that a CUDA graph replays on a card (run eagerly here) ---
+
+@torch.no_grad()
+def per_frame_fused(model, batch, hp, cap):
+    """The fused path as one Python step a frame, indexed by the host's
+    step: mel_pre, mel_aft, lengths and cross-attention weights [L, B, H,
+    T_dec, T_enc] of every row, as numpy."""
+    dev, dtype = model.device, model.dtype
+    inputs, lengths, spk, lvec = (torch.from_numpy(a).to(dev) for a in
+                                  syn.prepare_decode_inputs(batch, hp))
+    b, t_in = inputs.shape
+    with syn.matmul_weights_in(model, dtype):
+        dec = model.decoder.decoder
+        enc = model.encoder(inputs, lengths, spk, lvec, deterministic=True)
+        w = decode.stack_decoder_params(dec, dtype)
+        mem_k, mem_v = decode.project_memory(enc, w.pop("w_kv"), dtype)
+        bias = F.pad(syn.padding_bias(syn.length_mask(lengths, t_in))
+                     [:, 0, 0, :], (0, mem_k.shape[2] - t_in),
+                     value=syn.NEG_INF)
+        cache_k = torch.zeros(hp.n_decoder_layer, b, decode.padded_cap(cap),
+                              hp.decoder_hidden, dtype=dtype)
+        cache_v = torch.zeros_like(cache_k)
+        pe = syn.sinusoid_position_encoding(cap, hp.decoder_hidden)
+        mels = torch.zeros(b, cap, hp.num_mels)
+        finished = torch.zeros(b, dtype=torch.bool)
+        lengths_out = torch.ones(b, dtype=torch.int32)
+        prev_mel = torch.zeros(b, hp.num_mels)
+        aligns, steps_run = [], 0
+        for step in range(cap):
+            if step % 16 == 0 and step and bool(finished.all()):
+                break
+            x = model.decoder_inputs(prev_mel, finished)
+            x = x + pe[step].to(x.dtype) * dec.pe_scale.to(x.dtype)
+            x_out, align, k_new, v_new = FRAME_STEP(
+                x.float(), step, w, cache_k, cache_v, mem_k, mem_v, bias,
+                num_heads=hp.n_attention_head)
+            cache_k[:, :, step] = k_new
+            cache_v[:, :, step] = v_new
+            mel, stop = model.decoder_outputs(
+                dec.output_layer_norm(x_out.to(dtype)))
+            mels[:, step] = mel
+            aligns.append(align.permute(0, 1, 3, 2)[..., :t_in])
+            finished = finished | (stop > 0)
+            lengths_out = torch.where(finished, lengths_out, lengths_out + 1)
+            prev_mel = mel
+            steps_run = step + 1
+        n = min(int(lengths_out.max()), steps_run)
+        mel_aft = mels + model.postnet_residual(mels, lengths_out)
+    return (mels[:, :n].numpy(), mel_aft[:, :n].numpy(), lengths_out.numpy(),
+            torch.stack(aligns[:n], dim=3).numpy())
+
+
+@pytest.mark.parametrize("collect", [True, False],
+                         ids=["alignments", "no_alignments"])
+@pytest.mark.parametrize("cap", [24, 37])
+def test_fused_loop_matches_the_per_frame_code(cap, collect):
+    """The loop of kernel launches and chains indexed by the device step
+    gives the per-frame code's outputs bit for bit, at caps that are not
+    multiples of the stop check's 16 frames, with rows that stop at
+    different frames."""
+    model = port_model(with_stop_head(jax_variables(7), 7))
+    batch = input_batch()
+    got = synthesize_batch(model, batch, FUSED, deterministic=True,
+                           max_frames=cap, collect_alignments=collect)
+    mel_pre, mel_aft, lengths, aligns = per_frame_fused(model, batch, FUSED,
+                                                        cap)
+    b, t_in = batch["inputs"].shape
+    assert len(set(got["generated_lengths"])) > 1   # rows stop apart
+    assert got["generated_lengths"] == list(lengths[:b])
+    np.testing.assert_array_equal(got["mel_pre"], mel_pre[:b])
+    np.testing.assert_array_equal(got["mel_aft"], mel_aft[:b])
+    if not collect:
+        assert got["alignments"]["encdec"] is None
+        return
+    for layer, a in enumerate(got["alignments"]["encdec"]):
+        np.testing.assert_array_equal(
+            a, aligns[layer, :b, ..., :t_in].transpose(0, 1, 3, 2))
+
+
+def test_host_step_and_device_step_agree_at_every_frame(monkeypatch):
+    seen = []
+    launch = syn._FusedFrames.launch
+
+    def spy(fr, step):
+        seen.append((step, int(fr.step_t)))
+        return launch(fr, step)
+    monkeypatch.setattr(syn._FusedFrames, "launch", spy)
+    model = port_model(with_stop_head(jax_variables(7), 0, bias=-1e4))
+    synthesize_batch(model, input_batch(), FUSED, deterministic=True,
+                     max_frames=37)
+    assert [s for s, _ in seen] == list(range(37))
+    assert all(step == step_t for step, step_t in seen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_frame_step_out_takes_the_outputs(dtype):
+    """``decoder_frame_step(..., out=FrameStepOut(...))`` writes the
+    call's outputs into ``out``'s buffers, equal to the call without it,
+    and refuses other inputs and steps outside the cache."""
+    x, w, ck, cv, mk, mv, bias = step_inputs(5, 2, 2, 48, 256, 256,
+                                             [200, 9])
+    t = lambda a: torch.from_numpy(a).to(dtype)
+    w = {k: torch.from_numpy(v) if k == "lns" else t(v)
+         for k, v in w.items()}
+    args = [torch.from_numpy(x), w, t(ck), t(cv), t(mk), t(mv),
+            torch.from_numpy(bias)]
+    out = decode.FrameStepOut(*args, num_heads=4)
+    for step in (0, 37, 255):
+        want = decode.decoder_frame_step(args[0], step, *args[1:],
+                                         num_heads=4)
+        got = decode.decoder_frame_step(args[0], step, *args[1:],
+                                        num_heads=4, out=out)
+        assert all(g is o for g, o in zip(got, out.tensors))
+        for g, wt in zip(got, want):
+            assert g.dtype == wt.dtype and torch.equal(g, wt)
+    with pytest.raises(ValueError, match="outside the cache"):
+        decode.decoder_frame_step(args[0], 256, *args[1:], num_heads=4,
+                                  out=out)
+    with pytest.raises(ValueError, match="other inputs"):
+        decode.decoder_frame_step(args[0].clone(), 3, *args[1:],
+                                  num_heads=4, out=out)
+    with pytest.raises(ValueError, match="mem_bias"):
+        decode.FrameStepOut(*args[:6], args[6][:, :100], num_heads=4)
+
+
+def test_cpu_frames_count_as_eager():
+    """On the CPU every fused frame's chain runs eagerly: the counters say
+    so, and the eager path counts neither."""
+    model = port_model(with_stop_head(jax_variables(7), 0, bias=-1e4))
+    counters = []
+    for hp in (FUSED, HP):
+        tracing.reset()
+        synthesize_batch(model, input_batch(), hp, deterministic=True,
+                         max_frames=21)
+        counters.append(tracing.windows()[-1]["counters"])
+    fused, eager = counters
+    assert fused["synth.frame_steps"] == fused["synth.eager_frames"] == 21
+    assert fused["synth.graph_frames"] == 0
+    assert eager["synth.frame_steps"] == 21
+    assert "synth.eager_frames" not in eager
+    assert "synth.graph_frames" not in eager
+
+
+def _graph_frame_share(cell):
+    path = ROOT / "gpubench" / "metrics" / ("graph_frame_share.%s.py" % cell)
+    spec = importlib.util.spec_from_file_location(
+        "graph_frame_share_" + cell, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.value
+
+
+def _window(profiled, counters):
+    return {"index": 0, "profiled": profiled, "spans": {},
+            "counters": counters}
+
+
+@pytest.mark.parametrize("cell", ["synth", "utt"])
+def test_graph_frame_share_reads_the_frame_counters(cell):
+    """The benchmark's ``graph_frame_share.<cell>``: replayed frames over
+    all fused frames in the unprofiled window after the trace; None where
+    there is no such window or, as in a program without the counters,
+    nothing to divide."""
+    value = _graph_frame_share(cell)
+    traced = _window(True, {"synth.graph_frames": 1,
+                            "synth.eager_frames": 9})
+    after = _window(False, {"synth.graph_frames": 995,
+                            "synth.eager_frames": 5,
+                            "synth.frame_steps": 1000})
+    assert value([_window(False, {}), traced, after]) == \
+        pytest.approx(99.5, rel=1e-12)
+    assert value([after]) is None                      # never profiled
+    assert value([after, traced]) is None              # nothing after it
+    assert value([traced, _window(False, {"synth.frame_steps": 8})]) is None
+    assert value([traced, _window(False, {"synth.eager_frames": 4})]) == 0.0
