@@ -18,11 +18,14 @@ uncaught exception and a non-zero exit):
      version on the card, bf16, at the three flagship synthesis call shapes
      (encoder self-attention, decoder causal, cross-attention, B=8) and edge
      shapes (Tk = 2048, Tq = 600, Tk not a multiple of the 64-key tile),
-     plus one fp32 case.  Max abs error of o and lse against the stated
-     tolerances; kernel, plain and scaled_dot_product_attention times (CUDA
-     events, warm L2 as on the main path, where the projection has just
-     written q/k/v) beside the byte/FLOP bound, the kernel's time over
-     SDPA's (ms_over_library) and the bound's share of it (bound_share).
+     one fp32 case, and F5-TTS's DiT rows (both CFG halves of one row,
+     B=2, at its longest and shortest rows, 2,077 and 430 frames, C=1024
+     in 16 heads of 64, no mask).  Max abs error of o and lse against the
+     stated tolerances; kernel, plain and scaled_dot_product_attention
+     times (CUDA events, warm L2 as on the main path, where the projection
+     has just written q/k/v) beside the byte/FLOP bound, the kernel's time
+     over SDPA's (ms_over_library) and the bound's share of it
+     (bound_share).
   4. train_kernel_check: the training kernels against their plain versions
      at the three flagship train shapes (B=16, T_in=192, T_out=448), bf16,
      plus an fp32 case and edge cases (causal Tq=600, Tk=77, a causal D=64
@@ -699,6 +702,12 @@ def kernel_phase(seed):
                  cross=True)
     check_kernel("encoder_fp32", rng, 8, 192, 192, 512, 8, False, enc_len,
                  dtype=torch.float32)
+    # F5-TTS's DiT (f5tts_base.flow_synth): one call a row over its own
+    # frames and both CFG halves, bidirectional over C=1024 in 16 heads of
+    # 64, at the traffic's longest and shortest rows
+    for name, t in (("f5_dit", 2077), ("f5_dit_short", 430)):
+        rows[name] = check_kernel(name, rng, 2, t, t, 1024, 16, False,
+                                  None)
     return rows
 
 

@@ -21,6 +21,17 @@ default as in the JAX package; ``wire_mel_int16`` the int16 host-to-device
 copy of the mel targets in training.
 ``use_external_embed=True`` is rejected: the reference declares it but no code
 path reads it.
+
+``model`` selects the architecture: ``"byte2speech"`` (the default, the
+reference's autoregressive ``ByteToMel``) or ``"f5tts"`` (F5-TTS,
+arXiv:2410.06885: a DiT flow-matching text-to-mel sampler,
+``models/f5tts.py``; synthesis only).  The ``dit_*``, ``text_*`` and
+``flow_nfe`` fields are F5's widths, depths and steps, with the published
+``F5TTS_Base`` values as defaults; its fixed constants (FFN and text
+multipliers, position convolution, CFG strength, sway) live beside the
+code that uses them (``models/f5tts.py``, ``infer/flow.py``); F5's mel
+settings (100 mels at 24 kHz, hop 256, window and FFT 1024) are values of
+the audio fields, set where F5 is configured.
 """
 
 from __future__ import annotations
@@ -28,6 +39,9 @@ from __future__ import annotations
 import dataclasses
 import re
 from dataclasses import dataclass
+
+
+MODELS = ("byte2speech", "f5tts")
 
 
 @dataclass(frozen=True)
@@ -134,11 +148,30 @@ class Config:
     remat: bool = False
     prng_impl: str = "rbg"
 
+    # ---- architecture; F5-TTS (F5TTS_Base of github.com/SWivid/F5-TTS) ----
+    model: str = "byte2speech"
+    dit_dim: int = 1024
+    dit_depth: int = 22
+    dit_heads: int = 16
+    text_dim: int = 512
+    text_conv_layers: int = 4
+    flow_nfe: int = 32
+
     def __post_init__(self):
         if self.use_external_embed:
             raise ValueError(
                 "use_external_embed=True has no code path (the reference "
                 "declares the flag but never reads it)")
+        if self.model not in MODELS:
+            raise ValueError("model must be one of %s, got %r"
+                             % (", ".join(MODELS), self.model))
+        if self.dit_dim % self.dit_heads:
+            raise ValueError("dit_dim=%d does not divide into dit_heads=%d"
+                             % (self.dit_dim, self.dit_heads))
+        if self.model == "f5tts" and self.mesh_model_axis > 1:
+            raise ValueError("model=f5tts runs on whole layers; "
+                             "mesh_model_axis must be 1, got %d"
+                             % self.mesh_model_axis)
 
     # ------------------------------------------------------------------
     def replace(self, **kw) -> "Config":

@@ -49,6 +49,7 @@ from ..models.common import (NEG_INF, length_mask, padding_bias,
 from ..models.tacotron import ByteToMel
 from ..ops import decode
 from ..utils import tracing
+from . import flow
 
 _STOP_CHECK_INTERVAL = 16
 
@@ -372,8 +373,16 @@ def synthesize_batch(model: ByteToMel, batch: Dict[str, Any], hp: Config,
     dropout is on and its masks come from ``generator`` (a fresh randomly
     seeded one if None).  ``hp.use_pallas_decode`` selects the fused decoder
     step for deterministic decodes without self-alignments.
+
+    With ``hp.model == "f5tts"`` the batch is F5-TTS's (prompt mels, prompt
+    and target text) and the flow sampler of ``infer/flow.py`` runs it
+    (``generator`` draws its noise; ``deterministic`` and the alignment
+    flags do not apply); the result holds ``mel_aft`` = ``mel_pre`` and
+    ``generated_lengths``, each row's total frames.
     """
     with tracing.span("synth.call"):
+        if hp.model == "f5tts":
+            return flow.sample(model, batch, hp, generator, max_frames)
         return _synthesize(model, batch, hp, deterministic, generator,
                            collect_alignments, collect_self_alignments,
                            max_frames)

@@ -94,4 +94,6 @@ def main(argv=None):
     if unparsed:
         print('unparsed:', unparsed)
     hp = default_config().parse(args.hparams)
+    if hp.model == 'f5tts':
+        raise ValueError('training model=f5tts is not ported')
     return train(args, hp)

@@ -14,7 +14,7 @@ from few_shot_transformer_tts_tpu.config import small_test_config as jax_cfg
 from few_shot_transformer_tts_tpu.models import ByteToMel as JaxByteToMel
 from few_shot_transformer_tts_tpu.train.converter import \
     convert_torch_state_dict
-from few_shot_transformer_tts_torch.config import small_test_config
+from few_shot_transformer_tts_torch.config import Config, small_test_config
 from few_shot_transformer_tts_torch.models import ByteToMel
 from few_shot_transformer_tts_torch.models.tacotron import init_weights_
 from few_shot_transformer_tts_torch.train.converter import (
@@ -171,4 +171,12 @@ def test_hparams_strings_carry_over():
             "n_attention_head=2,data_format=nltpi")
     want = jax_cfg().parse(spec).values()
     got = small_test_config().parse(spec).values()
+    # the port's own fields beyond the JAX package's are the architecture
+    # selector and F5-TTS's, at their defaults
+    port_only = {k: got.pop(k) for k in set(got) - set(want)}
     assert got == want
+    assert port_only["model"] == "byte2speech"
+    defaults = Config().values()
+    assert port_only == {k: defaults[k] for k in port_only}
+    assert all(k == "model" or k.startswith(("dit_", "text_", "flow_"))
+               for k in port_only)
